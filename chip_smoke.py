@@ -1,7 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (hash_join_codes_knl_tpu_torch) on
 one NVIDIA GPU: build the kernels, hold each against its plain PyTorch
-version, run join() against the numpy oracle, then the 16M x 256M
-headline join and its Zipf z=1.0 twin.
+version, then drive both paths of join().  The merge path: digests
+against the numpy oracle, the 16M x 256M headline join and its Zipf
+z=1.0 twin.  The padded path (sort-mode and radix-partitioned PHJ):
+digests against the oracle, then 16M x 256M in sort mode and in the
+4096-way radix mode.
 
     python3 chip_smoke.py
 
@@ -15,16 +18,38 @@ largest difference from the plain version and both times.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 HEADLINE = (16_000_000, 256_000_000)  # bench.py's shape
 HEADLINE_4M = (4_000_000, 64_000_000)  # the digest check's shape
+RADIX_4M = (4_000_000, 16_000_000)  # the phj_radix_4096way bench row
+SMALL = (1_000_000, 8_000_000)  # the dense probe's and sort mode's shape
+# the TPU engine's hardware battery relation (scripts/tpu_smoke.py):
+# build keys unique among 400K draws, probe hits drawn from them, misses
+BATTERY = (400_000, 262_144, 3_000_000, 500_000)
+
+
+def _radix_4096_plan():
+    """The reference CPRA's 4096-way fanout as two 6-bit passes (the
+    phj_radix_4096way bench row's plan)."""
+    from hash_join_codes_knl_tpu_torch.engine.config import JoinPlan
+
+    return JoinPlan(p_bits=12, slots=1024, tile=2048, pass_bits=(6, 6),
+                    partition_impl="radix", probe_impl="pallas")
+
+
+def _sort_plan(ni, no):
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+
+    return dataclasses.replace(plan_join(ni, no), probe_impl="pallas")
 
 
 def _print(*a):
@@ -141,7 +166,7 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
            f"plain {plain_ms:.4f} ms at the last")
 
     # K2: the dense probe at the 1M x 8M plan (tile 2048, window 1024)
-    s = _stages(cols_1m, plan_join(1_000_000, 8_000_000))
+    s = _stages(cols_1m, plan_join(*SMALL))
     bhk, bval, ohk, _, wrow, tile, window = s
     small = (ohk[: 16 * tile], bhk, bval, wrow[:16], tile, window)
     _check_equal("merge_probe small", mp.merge_probe(*small),
@@ -185,25 +210,141 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
            f"{n_tiles} tiles and to merge_probe on all, tile {tile}, "
            f"window {window}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
            f"(256 tiles); kernel {ms_full:.4f} ms on all tiles")
+    del bhk, bval, ohk, wrow, sub, full, got, want
+    torch.cuda.empty_cache()
+    out["probe_tiles"] = _kernel_probe_tiles(dev, cols_h)
+    torch.cuda.empty_cache()
+    out["radix_partition"] = _kernel_radix_partition(cols_h)
     return out
 
 
-def _launches():
+def _spread_tiles(pk, tpid, tile: int, count: int):
+    """`count` tiles spread over the layout, in order (so their tile_pid
+    stays non-decreasing), as a contiguous probe column."""
+    n_tiles = tpid.shape[0]
+    sel = torch.linspace(0, n_tiles - 1, count, device=pk.device).long()
+    return (pk.view(n_tiles, tile)[sel].reshape(-1).contiguous(),
+            tpid[sel].contiguous())
+
+
+def _kernel_probe_tiles(dev, cols_h) -> dict:
+    """The tile probe: a small case, then the sort-mode headline layout
+    on 256 spread tiles (kernel and plain timed there), then the kernel
+    alone on every tile of the sort-mode and the radix-4096 layouts."""
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    keys = torch.randint(-2**31 + 1, 2**31, (3000,), dtype=torch.int32,
+                         device=dev, generator=g)
+    ik = keys[torch.randint(0, 3000, (2000,), device=dev, generator=g)]
+    ok = keys[torch.randint(0, 3000, (8192,), device=dev, generator=g)]
+    ok[::9] = -2**31  # null probes
+    small = _padded_stages(ik, ik, ok, ok, dataclasses.replace(
+        _sort_plan(2000, 8192), p_bits=4, slots=256, tile=128))
+    args = (small["pk"], small["tk"], small["tv"], small["tpid"], 128)
+    _check_equal("probe_tiles small", pt.probe_tiles(*args),
+                 pt.probe_tiles_torch(*args))
+
+    plan = _sort_plan(*HEADLINE)
+    lay = _padded_stages(*cols_h, plan)
+    tile = plan.tile
+    pk_s, tp_s = _spread_tiles(lay["pk"], lay["tpid"], tile, 256)
+    sub = (pk_s, lay["tk"], lay["tv"], tp_s, tile)
+    got, want = pt.probe_tiles(*sub), pt.probe_tiles_torch(*sub)
+    _check_equal("probe_tiles sort-mode headline, 256 tiles", got, want)
+    err = _max_abs_err(got, want)
+    ms = _median_ms(lambda: pt.probe_tiles(*sub), 20)
+    plain_ms = _median_ms(lambda: pt.probe_tiles_torch(*sub), 3)
+    full = (lay["pk"], lay["tk"], lay["tv"], lay["tpid"], tile)
+    n_sort = lay["tpid"].shape[0]
+    ms_sort = _median_ms(lambda: pt.probe_tiles(*full), 5)
+    del lay, full, sub, got, want
+    torch.cuda.empty_cache()
+
+    lay = _padded_stages(*cols_h, _radix_4096_plan())
+    if int(lay["build_counts"][-1]):
+        raise AssertionError("radix layout overflowed in phase kernels")
+    pk_s, tp_s = _spread_tiles(lay["pk"], lay["tpid"], 128, 256)
+    sub = (pk_s, lay["tk"], lay["tv"], tp_s, 128)
+    _check_equal("probe_tiles radix-4096 headline, 256 tiles",
+                 pt.probe_tiles(*sub), pt.probe_tiles_torch(*sub))
+    full = (lay["pk"], lay["tk"], lay["tv"], lay["tpid"], 128)
+    n_radix = lay["tpid"].shape[0]
+    slots_radix = lay["tk"].shape[1]
+    ms_radix = _median_ms(lambda: pt.probe_tiles(*full), 3)
+    del lay, full, sub
+    _print(f"phase kernels: probe_tiles equal to plain on a small layout and "
+           f"on 256 spread tiles of the 16M x 256M sort-mode (tile {tile}, "
+           f"{n_sort} tiles, slots {plan.slots}) and radix-4096 (tile 128, "
+           f"{n_radix} tiles, slots {slots_radix}) layouts; kernel "
+           f"{ms:.4f} ms, plain {plain_ms:.4f} ms (256 sort-mode tiles); "
+           f"kernel {ms_sort:.4f} ms on all sort-mode tiles, "
+           f"{ms_radix:.4f} ms on all radix tiles")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                ms_full_sort=ms_sort, ms_full_radix=ms_radix,
+                shape=f"256 of {n_sort} tiles, tile={tile} "
+                      f"slots={plan.slots}")
+
+
+def _kernel_radix_partition(cols_h) -> dict:
+    """The radix pass at 256M probe rows: pass 1 of the 4096-way plan
+    (F = 64), kernel and plain timed, then pass 2 over all 64 pass-1
+    regions in one batched call."""
+    from hash_join_codes_knl_tpu_torch.engine.phj import _scrambled
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+
+    plan = _radix_4096_plan()
+    hk, v = _scrambled(cols_h[2], cols_h[3], plan.factor)
+    b1, b2 = plan.pass_bits
+    args = (hk, v, b1)
+    got, want = rp.radix_partition(*args), rp.radix_partition_torch(*args)
+    _check_equal("radix_partition pass 1", got, want)
+    err = _max_abs_err(got, want)
+    if int(got[3]):
+        raise AssertionError("radix pass 1 overflowed")
+    del want
+    ms = _median_ms(lambda: rp.radix_partition(*args), 10)
+    plain_ms = _median_ms(lambda: rp.radix_partition_torch(*args), 3)
+    del hk, v
+    args2 = (got[0], got[1], b2, b1, 0, 32768, 1 << b1)
+    got2, want2 = rp.radix_partition(*args2), rp.radix_partition_torch(*args2)
+    _check_equal("radix_partition pass 2 batch", got2, want2)
+    err = max(err, _max_abs_err(got2, want2))
+    if int(got2[3]):
+        raise AssertionError("radix pass 2 overflowed")
+    del want2
+    ms2 = _median_ms(lambda: rp.radix_partition(*args2), 5)
+    n1, n2 = got[0].shape[0], got2[0].shape[0]
+    _print(f"phase kernels: radix_partition equal to plain on pass 1 "
+           f"({HEADLINE[1]} rows -> 64 regions, {n1} slots) and on the "
+           f"pass-2 batch (64 regions of {n1 // 64} slots -> 4096 regions, "
+           f"{n2} slots); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+           f"(pass 1); kernel {ms2:.4f} ms (pass 2 batch)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_pass2=ms2,
+                shape=f"pass 1 of (6, 6): n={HEADLINE[1]} F=64")
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper by name; each counts its launches."""
     from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
     from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
     from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
 
-    return {"flat_to_rows": cl.flat_to_rows.launches,
-            "merge_probe": mp.merge_probe.launches,
-            "merge_probe_gather": mg.merge_probe_gather.launches}
+    return {"flat_to_rows": cl.flat_to_rows,
+            "merge_probe": mp.merge_probe,
+            "merge_probe_gather": mg.merge_probe_gather,
+            "probe_tiles": pt.probe_tiles,
+            "radix_partition": rp.radix_partition}
+
+
+def _launches():
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def _reset_launches():
-    from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
-    from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
-    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
-
-    for fn in (cl.flat_to_rows, mp.merge_probe, mg.merge_probe_gather):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
@@ -222,7 +363,8 @@ def _oracle_count(ik: np.ndarray, ok: np.ndarray) -> int:
     return int((per * reps).sum())
 
 
-def _join_vs_oracle(label, data, dev, want_kernels):
+def _join_vs_oracle(label, data, dev, want_kernels, plan=None,
+                    want=None):
     from hash_join_codes_knl_tpu.engine.oracle import (
         join_oracle,
         multiset_digest,
@@ -231,19 +373,21 @@ def _join_vs_oracle(label, data, dev, want_kernels):
 
     inner, outer = data
     before = _launches()
-    res, plan = join(*_device_cols(data, dev))
+    res, plan = join(*_device_cols(data, dev), plan)
     d = _delta(before)
     attempts = d["merge_probe"] + d["merge_probe_gather"]
     for k in want_kernels:
         if d[k] == 0:
             raise AssertionError(f"{label}: {k} was not launched ({d})")
     got = multiset_digest(*materialize(res))
-    want = multiset_digest(*join_oracle(inner.keys, inner.vals, outer.keys,
-                                        outer.vals))
+    if want is None:
+        want = multiset_digest(*join_oracle(inner.keys, inner.vals,
+                                            outer.keys, outer.vals))
     if got != want:
         raise AssertionError(f"{label}: digest {got} != oracle {want}")
+    replans = f"re-plans {attempts - 1}; " if attempts else ""
     _print(f"phase join: {label} digest equals the oracle's ({got[0]} rows); "
-           f"re-plans {attempts - 1}; launches {d}; final plan {plan}")
+           f"{replans}launches {d}; final plan {plan}")
 
 
 def phase_joins(dev, data_1m):
@@ -364,6 +508,149 @@ def phase_zipf_headline(dev) -> None:
            f"join incl. re-plans {dt:.6f} s")
 
 
+def phase_padded_joins(dev, data_1m) -> None:
+    """Digests of the padded path against the oracle: the three padded
+    plans of the TPU engine's hardware battery on its 262144 x 3.5M
+    relation, 1M x 8M in sort mode, and 4M x 16M in the 4096-way radix
+    mode (the phj_radix_4096way bench row's relation and plan)."""
+    from hash_join_codes_knl_tpu.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+    from hash_join_codes_knl_tpu_torch.engine.config import JoinPlan
+
+    draws, n_build, n_hits, n_miss = BATTERY
+    rng = np.random.default_rng(3)
+    ik = np.unique(rng.integers(1, 2**32, draws, dtype=np.uint32))[:n_build]
+    iv = rng.integers(0, 2**32, len(ik), dtype=np.uint32)
+    hits = ik[rng.integers(0, len(ik), n_hits)]
+    miss = rng.integers(1, 2**32, n_miss, dtype=np.uint32)
+    ok = np.concatenate([hits, miss]).astype(np.uint32)
+    rng.shuffle(ok)
+    ov = rng.integers(0, 2**32, len(ok), dtype=np.uint32)
+    data = (SimpleNamespace(keys=ik, vals=iv),
+            SimpleNamespace(keys=ok, vals=ov))
+    want = multiset_digest(*join_oracle(ik, iv, ok, ov))
+    for label, plan, kernels in [
+        ("padded pallas", JoinPlan(p_bits=10, slots=1024, tile=2048,
+                                   pass_bits=(10,), probe_impl="pallas"),
+         ["flat_to_rows", "probe_tiles"]),
+        ("padded radix pass_bits=(5,5)", JoinPlan(
+            p_bits=10, slots=1024, tile=2048, pass_bits=(5, 5),
+            partition_impl="radix", probe_impl="pallas"),
+         ["probe_tiles", "radix_partition"]),
+        ("padded radix 4096-way pass_bits=(6,6)", _radix_4096_plan(),
+         ["probe_tiles", "radix_partition"]),
+    ]:
+        _join_vs_oracle(f"{label} {len(ik)} x {len(ok)}", data, dev,
+                        kernels, plan, want)
+    _join_vs_oracle(f"sort mode {SMALL[0]} x {SMALL[1]}", data_1m, dev,
+                    ["flat_to_rows", "probe_tiles"], _sort_plan(*SMALL))
+    data_r, _ = _generate(*RADIX_4M, seed=44, mode="uniform")
+    _join_vs_oracle(f"radix 4096-way {RADIX_4M[0]} x {RADIX_4M[1]}", data_r,
+                    dev,
+                    ["probe_tiles", "radix_partition"], _radix_4096_plan())
+
+
+def _padded_stages(ik, iv, ok, ov, plan, ev=None) -> dict:
+    """_phj_join_padded's steps one by one, in its order and through its
+    own stage functions (tests/test_torch_smoke_stages.py holds the two
+    equal); with `ev` (six CUDA events) each stage boundary is recorded.
+    Returns the layout, the JoinResult's columns and the cardinality."""
+    from hash_join_codes_knl_tpu_torch.engine import phj
+
+    rec = (lambda i: ev[i].record()) if ev else (lambda i: None)
+    phj._check_padded_plan(plan)
+    rec(0)
+    tk, tv, bcounts, bovf = phj._padded_build(ik, iv, plan)
+    rec(1)
+    pk, pv, tpid, tile, oovf = phj._padded_layout(ok, ov, plan)
+    counts = bcounts
+    if bovf is not None:
+        counts = torch.full_like(bcounts, tk.shape[1])
+        bcounts = torch.cat([bcounts, (bovf + oovf).view(1)])
+    rec(2)
+    mv, mc = phj._padded_probe(plan, pk, tk, tv, tpid, tile, counts)
+    rec(3)
+    keys = phj._unscramble(pk, plan.factor)
+    rec(4)
+    join_tuples = int(mc.sum(dtype=torch.int64))
+    rec(5)
+    return dict(tk=tk, tv=tv, pk=pk, tpid=tpid, probe_keys=keys,
+                probe_vals=pv, match_vals=mv, match_cnts=mc,
+                build_counts=bcounts, join_tuples=join_tuples)
+
+
+RESULT_COLUMNS = ("probe_keys", "probe_vals", "match_vals", "match_cnts",
+                  "build_counts")
+
+
+def phase_padded(dev, cols, label, plan) -> None:
+    """16M x 256M through join() in one padded mode: exact cardinality,
+    no overflow, the kernels launched, median of 3 and peak memory."""
+    from hash_join_codes_knl_tpu.relation import expected_join_tuples
+    from hash_join_codes_knl_tpu_torch.engine.phj import join
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = _launches()
+    res, plan = join(*cols, plan)  # raises on any padded overflow
+    d = _delta(before)
+    got, want = int(res.join_tuples), expected_join_tuples(*HEADLINE)
+    ovf = int(res.build_counts[-1]) if plan.partition_impl == "radix" else 0
+    if got != want or ovf:
+        raise AssertionError(f"{label}: join_tuples {got} != {want} or pass "
+                             f"overflow {ovf}")
+    need = ["probe_tiles"] + (["radix_partition"]
+                              if plan.partition_impl == "radix" else [])
+    for k in need:
+        if d[k] == 0:
+            raise AssertionError(f"{label}: {k} not launched: {d}")
+    shape = res.probe_keys.shape[0]
+    del res
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = join(*cols, plan)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del res
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    med = float(np.median(times))
+    _print(f"phase padded: {label} 16M x 256M, join_tuples {got} exact, "
+           f"pass overflow {ovf}; {shape} probe slots; launches {d}; "
+           f"plan {plan}")
+    _print(f"phase padded: {label} join median of 3 {med:.6f} s = "
+           f"{HEADLINE[1] / med:.1f} probe-tuples/s (runs "
+           f"{[round(t, 6) for t in times]}); peak device memory "
+           f"{peak:.2f} GiB")
+
+
+def padded_stage_breakdown(cols, label, plan) -> None:
+    """Device time of each stage of one padded join at this plan, from
+    CUDA events, with every result column held equal to join()'s.  Runs
+    outside the counted window: its launches are not join()'s."""
+    from hash_join_codes_knl_tpu_torch.engine.phj import join
+
+    torch.cuda.empty_cache()
+    res, _ = join(*cols, plan)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    st = _padded_stages(*cols, plan, ev)
+    ev[5].synchronize()
+    for f in RESULT_COLUMNS:
+        if not torch.equal(st[f], getattr(res, f)):
+            raise AssertionError(f"{label}: staged {f} differs from join()'s")
+    del res, st
+    names = ["partition_build", "partition_probe", "probe", "unscramble",
+             "count"]
+    stages = {n: round(ev[i].elapsed_time(ev[i + 1]), 4)
+              for i, n in enumerate(names)}
+    _print(f"phase padded: {label} stages equal join()'s result; stage ms "
+           f"{stages}")
+
+
 KERNELS = [
     ("flat_to_rows", "hash_join_codes_knl_tpu_torch/csrc/chunk_layout.cu",
      "hash_join_codes_knl_tpu/ops/chunk_layout.py:61"),
@@ -372,7 +659,15 @@ KERNELS = [
     ("merge_probe_gather",
      "hash_join_codes_knl_tpu_torch/csrc/merge_probe_gather.cu",
      "hash_join_codes_knl_tpu/ops/merge_probe_gather.py:296"),
+    ("probe_tiles", "hash_join_codes_knl_tpu_torch/csrc/probe_tiles.cu",
+     "hash_join_codes_knl_tpu/ops/probe_pallas.py:120"),
+    ("radix_partition",
+     "hash_join_codes_knl_tpu_torch/csrc/radix_partition.cu",
+     "hash_join_codes_knl_tpu/ops/radix_partition_pallas.py:156"),
 ]
+# the kernels each path of join() must launch
+MERGE_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
+PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition"]
 
 
 def main() -> None:
@@ -402,7 +697,7 @@ def main() -> None:
     data_h, gen_s = _generate(*HEADLINE, seed=42, mode="uniform")
     cols_h = _device_cols(data_h, dev)
     del data_h
-    data_1m, _ = _generate(1_000_000, 8_000_000, seed=41, mode="uniform")
+    data_1m, _ = _generate(*SMALL, seed=41, mode="uniform")
     stats = phase_kernels(dev, _device_cols(data_1m, dev), cols_h)
     torch.cuda.empty_cache()
     _stage_breakdown(cols_h, plan_join(*HEADLINE))  # warm-up
@@ -410,22 +705,36 @@ def main() -> None:
            f"{_stage_breakdown(cols_h, plan_join(*HEADLINE))}")
     torch.cuda.empty_cache()
 
-    # the main path's run: every launch count starts at 0 here, and only
-    # join() launches kernels from here on
+    # the main paths' runs: every launch count starts at 0 just before a
+    # path, is read just after it, and only join() launches kernels there;
+    # the padded stage breakdowns run after the read
     _reset_launches()
     phase_joins(dev, data_1m)
-    del data_1m
     phase_headline(dev, cols_h, gen_s)
-    del cols_h
     torch.cuda.empty_cache()
     phase_zipf_headline(dev)
-    launches = _launches()
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched by join()")
+    merge = _launches()
+    _print(f"launches, merge path: {merge}")
+
+    _reset_launches()
+    phase_padded_joins(dev, data_1m)
+    del data_1m
+    phase_padded(dev, cols_h, "sort mode", _sort_plan(*HEADLINE))
+    phase_padded(dev, cols_h, "radix 4096-way", _radix_4096_plan())
+    padded = _launches()
+    _print(f"launches, padded path: {padded}")
+    padded_stage_breakdown(cols_h, "sort mode", _sort_plan(*HEADLINE))
+    padded_stage_breakdown(cols_h, "radix 4096-way", _radix_4096_plan())
+    del cols_h
+    for path, names, got in (("merge", MERGE_KERNELS, merge),
+                             ("padded", PADDED_KERNELS, padded)):
+        for name in names:
+            if got[name] == 0:
+                raise AssertionError(f"{name} was never launched by join() "
+                                     f"on the {path} path")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **stats[name])
+                    launches=merge[name] + padded[name], **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))
     _print(json.dumps({"ok": True, "device": {

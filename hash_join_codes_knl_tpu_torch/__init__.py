@@ -1,5 +1,5 @@
-"""The query engine's merge-mode hash join in PyTorch, with hand-written
-CUDA kernels for the NVIDIA H100.
+"""The query engine's partitioned hash join (merge, padded and radix
+modes) in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
 
 A port of ``hash_join_codes_knl_tpu`` (JAX/Pallas on a TPU), which stays
 the reference it is tested against.  This package imports no JAX; it

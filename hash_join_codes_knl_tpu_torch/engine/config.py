@@ -3,9 +3,9 @@
 Counterpart of ``hash_join_codes_knl_tpu/engine/config.py``.  `JoinPlan`
 carries every field of the JAX plan, so that a JAX plan converts one to
 one (`engine/convert.py`), and `plan_join` derives the same geometry.
-The fields that only the padded and radix paths read (`p_bits`, `slots`,
-`pass_bits`, `skip_bits`, `partition_impl`) are carried unchanged; the
-port runs the merge path only.
+The merge modes read `tile`, `window`, `probe_chunks` and the
+opportunistic flags; the padded modes read `p_bits`, `slots`, `tile`,
+`skip_bits` and `partition_impl`, and the radix mode `pass_bits`.
 """
 
 from __future__ import annotations
@@ -22,16 +22,22 @@ _MIN_TUNED_CHUNKS = 48
 @dataclasses.dataclass(frozen=True)
 class JoinPlan:
     p_bits: int  # total partition bits (padded paths only)
-    slots: int  # build-table slots per partition (padded paths only)
-    tile: int  # probe tile = probe-side pad quantum
+    slots: int  # build-table slots per partition (padded sort modes)
+    tile: int  # probe tile = probe-side pad quantum (radix mode: 128)
     factor: int = DEFAULT_FACTOR
-    pass_bits: tuple = ()  # per-pass radix bits (radix path only)
+    pass_bits: tuple = ()  # per-pass radix bits (radix mode only)
     skip_bits: int = 0  # hash bits consumed by upstream routing
-    partition_impl: str = "sort"  # padded paths only
-    # "merge" (sorted-window probe; resolves to a kernel by window
-    # width) | "merge_pallas" (dense sweep kernel) | "merge_gather"
-    # (binary-search kernel) | "merge_jnp" (plain torch, for tests).
-    # The padded modes "auto"/"pallas"/"jnp" are not ported yet.
+    # padded paths only: "sort" | "argsort" (one stable sort lays out
+    # both; the JAX package's two forms agree slot for slot) | "radix"
+    # (multi-pass radix partitioner)
+    partition_impl: str = "sort"
+    # merge modes: "merge" (sorted-window probe; resolves to a kernel by
+    # window width) | "merge_pallas" (dense sweep kernel) |
+    # "merge_gather" (binary-search kernel) | "merge_jnp" (plain torch,
+    # for tests).  Padded modes: "auto" and "pallas" (the tile probe:
+    # its kernel on a CUDA tensor, its plain version on a CPU tensor) |
+    # "jnp" (always the plain version, with the table-count mask; for
+    # tests)
     probe_impl: str = "merge"
     window: int = 0  # merge-mode probe window in slots (0 = auto estimate)
     # two-class window geometry: not ported (must stay 0)
@@ -84,7 +90,7 @@ def plan_join(inner_n: int, outer_n: int, tile: int | None = None,
         tile = 3072 if probe_chunks else 2048
     p_bits = 1
     # mean build-partition occupancy <= 128 and mean probe partition >=
-    # 2 tiles (the padded paths' fanout rule, kept for plan parity)
+    # 2 tiles (the padded paths' fanout rule)
     while (inner_n >> p_bits) > 128 and (outer_n >> p_bits) >= 2 * tile:
         p_bits += 1
     mean_build = max(1, inner_n >> p_bits)

@@ -1,14 +1,27 @@
-"""PHJ, merge mode: the single-device join on sorted windows.
+"""PHJ: the single-device partitioned hash join.
 
-Counterpart of the merge path of ``hash_join_codes_knl_tpu/engine/phj.py``
-(``join`` -> ``phj_join`` -> ``phj_join_merge``).  Both relations are
-ordered by the scrambled key: the build side by one sort, the probe side
-as ``probe_chunks`` independently sorted chunks.  Each probe tile's
-matches then lie in one contiguous build window, located by a coarse
-searchsorted, and a window probe kernel (ops/merge_probe.py dense,
-ops/merge_probe_gather.py binary search) finds every probe's match count
-and maximum matched value.  A window too narrow for some tile is counted,
-never silent, and ``join`` re-plans from the measured span.
+Counterpart of ``hash_join_codes_knl_tpu/engine/phj.py`` (``join`` ->
+``phj_join``), which dispatches on the plan's ``probe_impl``:
+
+- the merge modes ("merge*", ``phj_join_merge``, the default plan);
+- the padded modes ("auto", "pallas", "jnp", ``_phj_join_padded``):
+  both relations partitioned by the top hash bits, the build side packed
+  into a dense (P, slots) table, the probe side laid out partition by
+  partition in tile-aligned regions, and every probe tile swept against
+  its partition's row (ops/probe.py).  ``partition_impl`` "sort" and
+  "argsort" lay out by one stable sort (ops/partition.py); "radix" runs
+  the multi-pass radix partitioner on both sides
+  (ops/radix_partition.py).
+
+Merge mode: both relations are ordered by the scrambled key, the build
+side by one sort, the probe side as ``probe_chunks`` independently
+sorted chunks.  Each probe tile's matches then lie in one contiguous
+build window, located by a coarse searchsorted, and a window probe
+kernel (ops/merge_probe.py dense, ops/merge_probe_gather.py binary
+search) finds every probe's match count and maximum matched value.  A
+window too narrow for some tile is counted, never silent, and ``join``
+re-plans from the measured span.  The padded modes are not re-planned:
+their overflow raises.
 
 Key domain (utils/hashing.py): on the device every key is a biased
 scrambled key, ``bias(key * factor mod 2^32)`` in an int32 tensor, and
@@ -16,8 +29,7 @@ every value the uint32 bits in an int32 tensor.  Columns are flat
 (cap,): the JAX package's chunk-row 2-D form exists only for TPU
 retiling.
 
-Not ported yet (ROADMAP.md): the padded and radix modes
-(``probe_impl`` "auto", "pallas", "jnp"), the two-class window geometry
+Not ported yet (ROADMAP.md): the two-class window geometry
 (``window_wide``), ``materialize_expanded`` and the staged pipeline.
 """
 
@@ -32,6 +44,14 @@ import torch
 from ..ops.chunk_layout import flat_to_rows
 from ..ops.merge_probe import merge_probe, merge_probe_torch
 from ..ops.merge_probe_gather import merge_probe_gather
+from ..ops.partition import (
+    build_dense_table,
+    partition_padded,
+    pids_from_hk,
+    tile_pids,
+)
+from ..ops.probe import probe_tiles, probe_tiles_torch
+from ..ops.radix_partition import multipass_partition
 from ..utils.hashing import (
     BIAS,
     mod_inverse_u32,
@@ -70,7 +90,10 @@ class JoinResult:
     probe_vals: torch.Tensor
     match_vals: torch.Tensor  # max build value over the matches, or 0
     match_cnts: torch.Tensor  # number of build matches
-    # [overflow tile count, max required span, plan-opt violations]
+    # merge modes: [window-overflow tile count, max required span,
+    # plan-opt violations]; padded sort modes: the P build partition
+    # counts (overflow where one exceeds plan.slots); radix mode: the P
+    # build partition counts, then the summed pass overflow (P+1 entries)
     build_counts: torch.Tensor
 
     @property
@@ -81,12 +104,6 @@ class JoinResult:
 
 
 def _reject_unported(plan: JoinPlan) -> None:
-    if not plan.probe_impl.startswith("merge"):
-        raise NotImplementedError(
-            f"probe_impl={plan.probe_impl!r} is the padded-partition PHJ, "
-            "not ported yet (ROADMAP.md Queue 1 item 6, padded and radix "
-            "PHJ)"
-        )
     if plan.window_wide:
         raise NotImplementedError(
             "window_wide > 0 is the two-class window geometry, not ported "
@@ -261,9 +278,8 @@ def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
     viol = overflow.new_zeros(())
     if plan.unique_build and impl == "merge_gather":
         viol = ((bhk[1:] == bhk[:-1]) & (bhk[1:] != BIAS)).sum()
-    inv = mod_inverse_u32(plan.factor)
     stats = torch.cat([overflow, viol[None]])
-    return JoinResult(mul_u32(unbias(ohk), inv), ov, mv, mc, stats)
+    return JoinResult(_unscramble(ohk, plan.factor), ov, mv, mc, stats)
 
 
 def phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
@@ -284,13 +300,99 @@ def phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
                         window)
 
 
+def _padded_probe(plan: JoinPlan, pk, tk, tv, tpid, tile: int,
+                  table_counts) -> tuple:
+    """"auto" and "pallas" run ``probe_tiles`` (the kernel on a CUDA
+    tensor, the plain version on a CPU tensor); "jnp" always runs the
+    plain version with the table-count mask, and exists for tests."""
+    if plan.probe_impl in ("auto", "pallas"):
+        return probe_tiles(pk, tk, tv, tpid, tile)
+    if plan.probe_impl == "jnp":
+        return probe_tiles_torch(pk, tk, tv, tpid, tile, table_counts)
+    raise ValueError(f"unknown probe_impl {plan.probe_impl!r}")
+
+
+def _scrambled(keys, vals, factor: int):
+    """Biased scrambled keys and the values, as flat columns (K1 with no
+    padding)."""
+    hk, v = flat_to_rows(keys, vals, keys.shape[0], 1, factor)
+    return hk.view(-1), v.view(-1)
+
+
+def _check_padded_plan(plan: JoinPlan) -> None:
+    if plan.partition_impl not in ("sort", "argsort", "radix"):
+        raise ValueError(f"unknown partition_impl {plan.partition_impl!r}")
+    if plan.partition_impl == "radix" and sum(plan.pass_bits) != plan.p_bits:
+        raise ValueError("radix mode consumes pass_bits; their sum must "
+                         f"equal p_bits ({plan.pass_bits} vs {plan.p_bits})")
+
+
+def _padded_build(keys, vals, plan: JoinPlan):
+    """Build side of the padded path: (table keys (P, S), table values,
+    partition counts (P,), pass overflow or None).  Sort modes pack a
+    dense table of plan.slots per partition; radix mode's final regions
+    are the table (null-interleaved: the probe never matches a null)."""
+    P = plan.num_partitions
+    hk, v = _scrambled(keys, vals, plan.factor)
+    if plan.partition_impl == "radix":
+        tk, tv, counts, ovf = multipass_partition(hk, v, plan.pass_bits,
+                                                  plan.skip_bits)
+        slots = tk.shape[0] // P
+        return tk.view(P, slots), tv.view(P, slots), counts, ovf
+    pid = pids_from_hk(hk, plan.p_bits, plan.skip_bits, null_pid=P)
+    return (*build_dense_table(hk, v, pid, P, plan.slots), None)
+
+
+def _padded_layout(keys, vals, plan: JoinPlan):
+    """Probe side of the padded path: (keys, values, tile_pid, tile, pass
+    overflow or None), every tile inside one partition's region.  Radix
+    regions are 128-slot multiples and take a 128-slot tile."""
+    P = plan.num_partitions
+    hk, v = _scrambled(keys, vals, plan.factor)
+    if plan.partition_impl == "radix":
+        pk, pv, _, ovf = multipass_partition(hk, v, plan.pass_bits,
+                                             plan.skip_bits)
+        tile = 128
+        offsets = torch.arange(P + 1, device=pk.device) * (pk.shape[0] // P)
+    else:
+        pid = pids_from_hk(hk, plan.p_bits, plan.skip_bits, null_pid=P)
+        pk, pv, offsets, _ = partition_padded(hk, v, pid, P, plan.tile)
+        tile, ovf = plan.tile, None
+    return pk, pv, tile_pids(offsets, pk.shape[0] // tile, tile), tile, ovf
+
+
+def _unscramble(pk, factor: int):
+    """Original keys of a biased scrambled column (pads become 0)."""
+    return mul_u32(unbias(pk), mod_inverse_u32(factor))
+
+
+def _phj_join_padded(inner_keys, inner_vals, outer_keys, outer_vals,
+                     plan: JoinPlan) -> JoinResult:
+    """PHJ, padded mode: the JAX package's ``_phj_join_padded`` and
+    ``_phj_join_padded_radix``.  Null keys are dropped on both sides.
+    build_counts holds the P build partition counts (a count past
+    plan.slots means dropped tuples); radix mode appends the summed pass
+    overflow of both sides (P+1 entries)."""
+    _check_padded_plan(plan)
+    tk, tv, bcounts, bovf = _padded_build(inner_keys, inner_vals, plan)
+    pk, pv, tpid, tile, oovf = _padded_layout(outer_keys, outer_vals, plan)
+    counts = bcounts
+    if bovf is not None:
+        counts = torch.full_like(bcounts, tk.shape[1])
+        bcounts = torch.cat([bcounts, (bovf + oovf).view(1)])
+    mv, mc = _padded_probe(plan, pk, tk, tv, tpid, tile, counts)
+    return JoinResult(_unscramble(pk, plan.factor), pv, mv, mc, bcounts)
+
+
 def phj_join(inner_keys, inner_vals, outer_keys, outer_vals,
              plan: JoinPlan) -> JoinResult:
-    """Dispatch on the plan's probe mode.  Only the merge modes are
-    ported; the padded modes raise NotImplementedError."""
-    _reject_unported(plan)
-    return phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
-                          plan)
+    """Dispatch on the plan's probe mode: "merge*" runs the sorted-window
+    probe, every other mode the padded-partition path."""
+    if plan.probe_impl.startswith("merge"):
+        return phj_join_merge(inner_keys, inner_vals, outer_keys,
+                              outer_vals, plan)
+    return _phj_join_padded(inner_keys, inner_vals, outer_keys, outer_vals,
+                            plan)
 
 
 def downgrade_plan_opts(plan: JoinPlan) -> JoinPlan:
@@ -355,10 +457,13 @@ def join(inner_keys, inner_vals, outer_keys, outer_vals,
     """Join with automatic window re-planning.
 
     Columns are 1-D int32 tensors holding uint32 bits, on the device to
-    run on, or numpy uint32 arrays with ``device=``.  A counted window
-    overflow re-plans from the measured span (replan_from_span); a
-    counted plan-optimization violation downgrades the plan's flags
-    (downgrade_plan_opts).  Returns (result, final plan)."""
+    run on, or numpy uint32 arrays with ``device=``.  In the merge modes
+    a counted window overflow re-plans from the measured span
+    (replan_from_span), and a counted plan-optimization violation
+    downgrades the plan's flags (downgrade_plan_opts).  In the padded
+    modes an overflow (a build partition past plan.slots, or a radix pass
+    past its region capacity) drops tuples and cannot be re-planned: it
+    raises RuntimeError.  Returns (result, final plan)."""
     cols = [_as_column(c, device) for c in
             (inner_keys, inner_vals, outer_keys, outer_vals)]
     if len({c.device for c in cols}) != 1:
@@ -366,6 +471,17 @@ def join(inner_keys, inner_vals, outer_keys, outer_vals,
     if plan is None:
         plan = plan_join(cols[0].shape[0], cols[2].shape[0])
     res = phj_join(*cols, plan)
+    if not plan.probe_impl.startswith("merge"):
+        bc = res.build_counts
+        over = (bool(bc[-1] != 0) if plan.partition_impl == "radix"
+                else bool((bc > plan.slots).any()))
+        if over:
+            raise RuntimeError(
+                "local join overflow on the padded path (table slots or "
+                "radix pass capacity exceeded): raise plan.slots or the "
+                "pass fanout; window re-planning cannot fix this"
+            )
+        return res, plan
     for _ in range(window_retries):
         win_ovf, span, sel_ovf = res.build_counts.tolist()
         if win_ovf == 0 and sel_ovf == 0:

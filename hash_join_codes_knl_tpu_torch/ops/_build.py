@@ -28,7 +28,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_VP, _I64, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+_VP, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+                         ctypes.c_int)
 # C entry points (csrc/*.cu): every pointer and the stream are void*
 _SIGNATURES = {
     "hjk_flat_to_rows": [_VP, _VP, _I64, _VP, _VP, _I64, _U32, _VP],
@@ -36,6 +37,12 @@ _SIGNATURES = {
                               _VP, _VP, _VP],
     "hjk_merge_probe_gather": [_VP, _I64, _VP, _VP, _I64, _VP, _I64, _I64,
                                _VP, _VP, _VP],
+    "hjk_probe_tiles": [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _VP, _VP,
+                        _VP],
+    "hjk_radix_histogram": [_VP, _I64, _I64, _I64, _I64, _INT, _INT, _VP,
+                            _VP],
+    "hjk_radix_scatter": [_VP, _VP, _I64, _I64, _I64, _I64, _INT, _INT,
+                          _VP, _VP, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -17,12 +17,16 @@ from hash_join_codes_knl_tpu.relgen.generate import generate
 from hash_join_codes_knl_tpu_torch.engine import phj
 from hash_join_codes_knl_tpu_torch.engine.config import (
     DEFAULT_FACTOR,
+    JoinPlan,
     plan_join,
 )
 from hash_join_codes_knl_tpu_torch.engine.convert import result_to_numpy
 from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
 from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
 from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+from hash_join_codes_knl_tpu_torch.ops import partition as pa
+from hash_join_codes_knl_tpu_torch.ops import probe as pt
+from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
 from hash_join_codes_knl_tpu_torch.utils.hashing import bias, u32_to_device
 from torch_cases import (
     case_boundary_and_pads,
@@ -106,7 +110,108 @@ def _mn_build(seed=7, ni=4096, no=32768, distinct=1500):
     return ik, iv, ok, ov
 
 
-@pytest.mark.parametrize("case", ["uniform", "mn", "chunked", "gather"])
+def _padded_layout(dev, ni, no, p_bits, slots, tile, distinct, seed):
+    """Sort-mode probe layout and dense table over M:N build keys with
+    null probes, built by the port's own partition operators."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, 2**32, distinct, dtype=np.uint32)
+    P = 1 << p_bits
+    ik = bias(u32_to_device(keys[rng.integers(0, distinct, ni)], dev))
+    ok_np = keys[rng.integers(0, distinct, no)]
+    ok_np[rng.integers(0, no, no // 10)] = 0
+    ok = bias(u32_to_device(ok_np, dev))
+    iv = u32_to_device(rng.integers(0, 2**32, ni, dtype=np.uint32), dev)
+    tk, tv, _ = pa.build_dense_table(
+        ik, iv, pa.pids_from_hk(ik, p_bits, null_pid=P), P, slots)
+    pk, _, offsets, _ = pa.partition_padded(
+        ok, ok, pa.pids_from_hk(ok, p_bits, null_pid=P), P, tile)
+    return pk, tk, tv, pa.tile_pids(offsets, pk.shape[0] // tile, tile)
+
+
+@pytest.mark.parametrize("ni,no,p_bits,slots,tile,distinct", [
+    (2000, 8192, 4, 256, 128, 3000),  # M:N, tile 128
+    (5000, 30000, 3, 1024, 3072, 100000),  # the sort-mode tile
+    (60000, 40000, 2, 20480, 256, 200000),  # rows wider than one stage
+    (100, 1000, 1, 128, 128, 50),  # heavy duplicates
+])
+def test_probe_tiles_kernel_matches_plain(cuda, ni, no, p_bits, slots, tile,
+                                          distinct):
+    args = (*_padded_layout(cuda, ni, no, p_bits, slots, tile, distinct,
+                            seed=ni), tile)
+    want = pt.probe_tiles_torch(*args)
+    assert int(want[1].sum()) > 0
+    before = pt.probe_tiles.launches
+    assert _equal(pt.probe_tiles(*args), want)
+    assert pt.probe_tiles.launches == before + 1
+
+
+def test_probe_tiles_kernel_on_radix_regions(cuda):
+    """Null-interleaved table rows and 128-slot tiles: the radix mode's
+    geometry."""
+    rng = np.random.default_rng(38)
+    ik = bias(u32_to_device(rng.permutation(np.unique(rng.integers(
+        1, 2**32, 60000, dtype=np.uint32)))[:50000], cuda))
+    ok = ik[torch.from_numpy(rng.integers(0, 50000, 200000)).to(cuda)]
+    iv = u32_to_device(rng.integers(0, 2**32, 50000, dtype=np.uint32), cuda)
+    tk, tv, _, o1 = rp.multipass_partition(ik, iv, (3, 3))
+    pk, _, _, o2 = rp.multipass_partition(ok, ok, (3, 3))
+    assert int(o1) == int(o2) == 0
+    slots, ocap = tk.shape[0] // 64, pk.shape[0] // 64
+    tpid = pa.tile_pids(torch.arange(65, device=cuda) * ocap,
+                        pk.shape[0] // 128, 128)
+    args = (pk, tk.view(64, slots), tv.view(64, slots), tpid, 128)
+    want = pt.probe_tiles_torch(*args)
+    assert int(want[1].sum()) == 200000
+    assert _equal(pt.probe_tiles(*args), want)
+
+
+def _radix_inputs(dev, n, seed, nulls=0, skew=False):
+    rng = np.random.default_rng(seed)
+    hk = rng.integers(1, 2**32, n, dtype=np.uint32)
+    if skew:
+        hk[: n // 2] = 0x9E3779B1
+    hk[rng.integers(0, max(n, 1), nulls)] = 0
+    vals = rng.integers(0, 2**32, n, dtype=np.uint32)
+    return bias(u32_to_device(hk, dev)), u32_to_device(vals, dev)
+
+
+@pytest.mark.parametrize("n,bits,skip,cap,tile,nulls,skew,regions", [
+    (20000, 3, 0, 0, 4096, 0, False, 1),
+    (30000, 4, 0, 0, 4096, 3000, False, 1),
+    (8192, 4, 3, 0, 32768, 0, False, 1),
+    (8192, 3, 0, 512, 4096, 0, True, 1),  # overflow
+    (12000, 3, 0, 3000, 2048, 0, False, 1),  # explicit cap
+    (1 << 20, 6, 0, 0, 32768, 1000, False, 1),
+    (1 << 20, 12, 0, 0, 32768, 0, False, 1),  # 4096-way in one pass
+    (1 << 20, 1, 31, 0, 32768, 0, False, 1),
+    (64 * 5000, 6, 6, 0, 32768, 20000, False, 64),  # a pass-2 batch
+    (0, 3, 0, 0, 32768, 0, False, 1),  # empty: no launch
+])
+def test_radix_partition_kernel_matches_plain(cuda, n, bits, skip, cap, tile,
+                                              nulls, skew, regions):
+    hk, vals = _radix_inputs(cuda, n, n + bits, nulls, skew)
+    args = (hk, vals, bits, skip, cap, tile, regions)
+    want = rp.radix_partition_torch(*args)
+    before = rp.radix_partition.launches
+    assert _equal(rp.radix_partition(*args), want)
+    assert rp.radix_partition.launches == before + (1 if n else 0)
+    assert int(want[3]) == (1 if skew else 0)
+    assert int(want[2].sum()) == int((hk != bias(torch.zeros_like(hk)))
+                                     .sum())
+
+
+@pytest.mark.parametrize("pass_bits", [(3, 3), (6, 6), (2, 2, 2)])
+def test_multipass_kernel_matches_plain(cuda, pass_bits):
+    hk, vals = _radix_inputs(cuda, 300000, 39, nulls=100)
+    got = rp.multipass_partition(hk, vals, pass_bits)
+    cpu = rp.multipass_partition(hk.cpu(), vals.cpu(), pass_bits)
+    assert _equal(got, [c.to(cuda) for c in cpu])
+    assert int(got[3]) == 0
+
+
+@pytest.mark.parametrize("case", ["uniform", "mn", "chunked", "gather",
+                                  "padded_sort", "padded_argsort",
+                                  "radix"])
 def test_join_on_card_matches_cpu(cuda, case):
     """join() on CUDA tensors (the kernels) equals join() on CPU tensors
     (the plain versions), slot for slot, with the same final plan."""
@@ -114,16 +219,27 @@ def test_join_on_card_matches_cpu(cuda, case):
         ik, iv, ok, ov = _mn_build()
         plan = None
     else:
-        inner, outer, _ = generate(seed=17, inner_tuples=4096,
-                                   outer_tuples=65536, mode="uniform")
+        # the radix layout's pads make the plain probe slow on the host
+        ni, no = (1024, 8192) if case == "radix" else (4096, 65536)
+        inner, outer, _ = generate(seed=17, inner_tuples=ni,
+                                   outer_tuples=no, mode="uniform")
         ik, iv, ok, ov = inner.keys, inner.vals, outer.keys, outer.vals
         plan = {
             "uniform": None,
             "chunked": plan_join(4096, 65536, tile=512, probe_chunks=8),
             "gather": plan_join(4096, 65536, tile=512, probe_chunks=16),
+            "padded_sort": JoinPlan(p_bits=4, slots=512, tile=256,
+                                    probe_impl="pallas"),
+            "padded_argsort": JoinPlan(p_bits=3, slots=1024, tile=3072,
+                                       skip_bits=2, partition_impl="argsort",
+                                       probe_impl="auto"),
+            "radix": JoinPlan(p_bits=6, slots=1024, tile=2048,
+                              pass_bits=(3, 3), partition_impl="radix",
+                              probe_impl="pallas"),
         }[case]
     counts = (cl.flat_to_rows.launches, mp.merge_probe.launches,
-              mg.merge_probe_gather.launches)
+              mg.merge_probe_gather.launches, pt.probe_tiles.launches,
+              rp.radix_partition.launches)
     res_c, plan_c = phj.join(ik, iv, ok, ov, plan, device=cuda)
     res_h, plan_h = phj.join(ik, iv, ok, ov, plan, device="cpu")
     assert plan_c == plan_h
@@ -131,6 +247,11 @@ def test_join_on_card_matches_cpu(cuda, case):
     for f in want:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
     after = (cl.flat_to_rows.launches, mp.merge_probe.launches,
-             mg.merge_probe_gather.launches)
+             mg.merge_probe_gather.launches, pt.probe_tiles.launches,
+             rp.radix_partition.launches)
     assert after[0] >= counts[0] + 2  # build and probe sides
-    assert after[1] + after[2] > counts[1] + counts[2]
+    if case.startswith(("padded", "radix")):
+        assert after[3] == counts[3] + 1
+        assert after[4] == counts[4] + (4 if case == "radix" else 0)
+    else:
+        assert after[1] + after[2] > counts[1] + counts[2]

@@ -110,9 +110,11 @@ def _kernel_calls():
     from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
     from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
     from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
 
-    def i32(n):
-        return torch.zeros(n, dtype=torch.int32, device="cuda")
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device="cuda")
 
     return {
         "flat_to_rows": lambda: cl.flat_to_rows(i32(100), i32(100), 128, 8),
@@ -120,11 +122,19 @@ def _kernel_calls():
                                               i32(2), 256, 256),
         "merge_probe_gather": lambda: mg.merge_probe_gather(
             i32(512), i32(256), i32(256), i32(2), 256, 256),
+        "probe_tiles": lambda: pt.probe_tiles(i32(512), i32(4, 256),
+                                              i32(4, 256), i32(4), 128),
+        "radix_partition": lambda: rp.radix_partition(i32(1000), i32(1000),
+                                                      6),
+        "multipass_partition": lambda: rp.multipass_partition(
+            i32(1000), i32(1000), (3, 3)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["flat_to_rows", "merge_probe",
-                                    "merge_probe_gather"])
+                                    "merge_probe_gather", "probe_tiles",
+                                    "radix_partition",
+                                    "multipass_partition"])
 def test_cuda_tensor_without_card_raises(monkeypatch, kernel):
     """A CUDA tensor launches the kernel or raises; it never takes the
     plain version.  Fake CUDA tensors stand in for real ones here."""
@@ -135,6 +145,8 @@ def test_cuda_tensor_without_card_raises(monkeypatch, kernel):
     from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
     from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
     from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
 
     def plain(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
@@ -142,6 +154,8 @@ def test_cuda_tensor_without_card_raises(monkeypatch, kernel):
     monkeypatch.setattr(cl, "flat_to_rows_torch", plain)
     monkeypatch.setattr(mp, "merge_probe_torch", plain)
     monkeypatch.setattr(mg, "merge_probe_torch", plain)
+    monkeypatch.setattr(pt, "probe_tiles_torch", plain)
+    monkeypatch.setattr(rp, "radix_partition_torch", plain)
     with FakeTensorMode():
         call = _kernel_calls()[kernel]
         with pytest.raises(RuntimeError, match="CUDA device"):
@@ -156,8 +170,8 @@ def test_build_library_named_by_source_hash():
     assert os.path.basename(path).startswith("libhjk_")
     assert path == _build.library_path()  # deterministic
     sources = {os.path.basename(s) for s in _build._sources()}
-    assert {"chunk_layout.cu", "merge_probe.cu",
-            "merge_probe_gather.cu"} <= sources
+    assert {"chunk_layout.cu", "merge_probe.cu", "merge_probe_gather.cu",
+            "probe_tiles.cu", "radix_partition.cu"} <= sources
     # the build directory is ignored by git
     gitignore = open(os.path.join(REPO, ".gitignore")).read().split()
     assert "hash_join_codes_knl_tpu_torch/_build/" in gitignore

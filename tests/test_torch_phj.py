@@ -233,9 +233,9 @@ def test_join_accepts_tensors_and_refuses_bad_inputs():
         tphj.join(ik, iv, ok, ov)  # numpy without device=
     with pytest.raises(ValueError):
         tphj.join(cols[0].to(torch.int64), *cols[1:])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="window_wide"):
         tphj.join(*cols, dataclasses.replace(plan_join(1024, 8192),
-                                             probe_impl="pallas"))
+                                             window=1280, window_wide=4096))
 
 
 def test_materialize_refuses_multi_match():
@@ -246,3 +246,104 @@ def test_materialize_refuses_multi_match():
 
 def test_default_plan_matches_jax_plan():
     assert plan_join(4096, 65536) == plan_from_jax(jax_plan_join(4096, 65536))
+
+
+# ---- the padded and radix modes ----------------------------------------
+
+
+def _padded_relations(seed, ni, no):
+    """Unique build keys; probes 3/4 hits, the rest random, some null."""
+    rng = np.random.default_rng(seed)
+    ik = np.unique(rng.integers(1, 2**32, 2 * ni, dtype=np.uint32))[:ni]
+    ik = ik[rng.permutation(ni)]
+    iv = rng.integers(0, 2**32, ni, dtype=np.uint32)
+    ok = np.concatenate([ik[rng.integers(0, ni, no - no // 4)],
+                         rng.integers(1, 2**32, no // 4, dtype=np.uint32)])
+    ok[rng.integers(0, no, no // 50)] = 0
+    ov = rng.integers(0, 2**32, no, dtype=np.uint32)
+    return ik, iv, ok, ov
+
+
+def _padded_pair(cols, plan):
+    """JAX join with probe_impl="jnp" and the port's join with `plan`;
+    checks the plan conversion and the oracle digest, returns both
+    results as numpy columns."""
+    res_j, plan_j = jphj.join(*cols, plan=_jax_plan(
+        dataclasses.replace(plan, probe_impl="jnp")))
+    res_t, plan_t = tphj.join(*cols, plan=plan, device="cpu")
+    assert plan_t == plan
+    assert plan_from_jax(plan_j) == dataclasses.replace(plan,
+                                                        probe_impl="jnp")
+    want = {f: np.asarray(getattr(res_j, f)).reshape(-1)
+            for f in ("probe_keys", "probe_vals", "match_vals",
+                      "match_cnts", "build_counts")}
+    digest = multiset_digest(*tphj.materialize(res_t))
+    assert digest == multiset_digest(*jphj.materialize(res_j))
+    assert digest == multiset_digest(*join_oracle(*cols))
+    return result_to_numpy(res_t), want
+
+
+@pytest.mark.parametrize("impl", ["sort", "argsort"])
+@pytest.mark.parametrize("probe_impl", ["pallas", "auto", "jnp"])
+def test_padded_sort_modes_slot_for_slot(impl, probe_impl):
+    """Both layouts sort stably, so every column agrees slot for slot,
+    probe values included, and so do the build partition counts."""
+    cols = _padded_relations(31, 2048, 8192)
+    plans = [
+        JoinPlan(p_bits=4, slots=512, tile=256, pass_bits=(4,),
+                 partition_impl=impl, probe_impl=probe_impl),
+        JoinPlan(p_bits=3, slots=1024, tile=384, pass_bits=(3,),
+                 skip_bits=3, partition_impl=impl, probe_impl=probe_impl),
+        dataclasses.replace(plan_join(2048, 8192), partition_impl=impl,
+                            probe_impl=probe_impl),
+    ]
+    for plan in plans:
+        got, want = _padded_pair(cols, plan)
+        for f in want:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        assert got["build_counts"].shape == (plan.num_partitions,)
+        assert got["match_cnts"].sum() == len(join_oracle(*cols)[0])
+
+
+@pytest.mark.parametrize("pass_bits", [(6,), (3, 3)])
+def test_padded_radix_mode(pass_bits):
+    """Radix runs keep input order within a run where the JAX kernel
+    sorts each run, so the results agree in build_counts (pass overflow
+    last), in the materialized digest and in the match-count sums."""
+    cols = _padded_relations(29, 2048, 2048)
+    plan = JoinPlan(p_bits=6, slots=1024, tile=2048, pass_bits=pass_bits,
+                    partition_impl="radix", probe_impl="pallas")
+    got, want = _padded_pair(cols, plan)
+    np.testing.assert_array_equal(got["build_counts"], want["build_counts"])
+    assert got["build_counts"].shape == (65,) and got["build_counts"][-1] == 0
+    assert got["match_cnts"].sum() == want["match_cnts"].sum() > 0
+    assert got["probe_keys"].shape == want["probe_keys"].shape
+
+
+def test_padded_overflows_raise():
+    """A build partition past plan.slots, and a radix run past its
+    region: both packages refuse the result."""
+    ik, iv, ok, ov = _padded_relations(33, 2048, 4096)
+    tight = JoinPlan(p_bits=2, slots=64, tile=256, probe_impl="jnp")
+    same = np.full(2048, 0x12345, np.uint32)
+    radix = JoinPlan(p_bits=3, slots=64, tile=128, pass_bits=(3,),
+                     partition_impl="radix", probe_impl="jnp")
+    for cols, plan in (((ik, iv, ok, ov), tight),
+                       ((same, iv, ok, ov), radix)):
+        with pytest.raises(RuntimeError, match="overflow"):
+            jphj.join(*cols, plan=_jax_plan(plan))
+        with pytest.raises(RuntimeError, match="overflow"):
+            tphj.join(*cols, plan=plan, device="cpu")
+    res = tphj.phj_join(*(u32_to_device(c, "cpu") for c in
+                          (same, iv, ok, ov)), radix)
+    assert int(res.build_counts[-1]) > 0  # the overflow is a value
+    assert int(res.build_counts[:-1].sum()) == 2048  # counts stay exact
+
+
+def test_radix_plan_needs_pass_bits_summing_to_p_bits():
+    cols = [u32_to_device(c, "cpu") for c in _padded_relations(34, 256, 512)]
+    with pytest.raises(ValueError, match="pass_bits"):
+        tphj.phj_join(*cols, JoinPlan(p_bits=6, slots=64, tile=128,
+                                      pass_bits=(3,),
+                                      partition_impl="radix",
+                                      probe_impl="auto"))

@@ -4,7 +4,9 @@ same sizes give the same plan, window, cap and re-plan, field for field."""
 import dataclasses
 import itertools
 
+import numpy as np
 import pytest
+import torch
 
 import hash_join_codes_knl_tpu.engine.phj as jphj
 import hash_join_codes_knl_tpu.engine.tune as jtune
@@ -132,11 +134,17 @@ def test_plan_from_jax_round_trips(plan):
 
 
 def test_unported_modes_raise():
+    """Only the two-class window geometry is left unported; the padded
+    modes run."""
     plan = plan_join(4096, 65536)
-    for impl in ("auto", "pallas", "jnp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tphj._merge_params(dataclasses.replace(plan, probe_impl=impl),
-                               4096, 65536)
     two_class = dataclasses.replace(plan, window=1280, window_wide=4096)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tphj._merge_params(two_class, 4096, 65536)
+    rng = np.random.default_rng(2)
+    cols = [torch.from_numpy(rng.integers(1, 2**31, n).astype(np.int32))
+            for n in (512, 512, 2048, 2048)]
+    for impl in ("auto", "pallas", "jnp"):
+        res = tphj.phj_join(*cols, dataclasses.replace(
+            plan_join(512, 2048), probe_impl=impl))
+        assert res.build_counts.shape == (plan_join(512, 2048)
+                                          .num_partitions,)
