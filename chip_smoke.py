@@ -1,19 +1,24 @@
 """Smoke run of the PyTorch/CUDA port (hash_join_codes_knl_tpu_torch) on
 one NVIDIA GPU: build the kernels, hold each against its plain PyTorch
-version, then drive both paths of join().  The merge path: digests
-against the numpy oracle, the 16M x 256M headline join and its Zipf
-z=1.0 twin.  The padded path (sort-mode and radix-partitioned PHJ):
-digests against the oracle, then 16M x 256M in sort mode and in the
-4096-way radix mode.
+version, then drive the three paths of the port.  The merge path of
+join(): digests against the numpy oracle, the 16M x 256M headline join,
+its Zipf z=1.0 twin and the two-class window geometry on the same
+columns.  The padded path (sort-mode and radix-partitioned PHJ): digests
+against the oracle, then 16M x 256M in sort mode and in the 4096-way
+radix mode.  The NPJ path (npj_join): digests against the oracle, then
+4M x 16M and 16M x 256M in both output orders.
 
     python3 chip_smoke.py
 
 Needs a CUDA device, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and g++
-(the relation generator's native library).  Every check raises on
-failure; the exit code is 0 only when all phases passed.  The last line
-of standard output is one JSON object naming the device; the line before
-it lists every kernel with its launch count in the join runs, its
-largest difference from the plain version and both times.
+(the port's native relation generator).  Imports nothing of the JAX
+package.  Every check raises on failure; the exit code is 0 only when
+all phases passed.  The last line of standard output is one JSON object
+naming the device; the line before it lists every kernel with its
+launch count in the path runs, its largest difference from the plain
+version, its time, the plain version's, and its bound: the larger of
+its bytes over 3.35 TB/s and its operations over the 32-bit integer rate
+INT32_OPS_PER_S (one H100 SXM's published peaks).
 """
 
 from __future__ import annotations
@@ -35,6 +40,45 @@ SMALL = (1_000_000, 8_000_000)  # the dense probe's and sort mode's shape
 # the TPU engine's hardware battery relation (scripts/tpu_smoke.py):
 # build keys unique among 400K draws, probe hits drawn from them, misses
 BATTERY = (400_000, 262_144, 3_000_000, 500_000)
+NPJ_4M = (4_000_000, 16_000_000)  # the npj_uniform bench row's shape
+
+# one H100 SXM at its 700 W limit: device memory rate, and the 32-bit
+# integer rate (132 SMs x 64 INT32 lanes x 1.98 GHz; the float32 rate of
+# 67 TFLOP/s counts 128 lanes and two operations per FMA)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def _bound(nbytes: float, ops: float = 0.0) -> dict:
+    """bound_ms and bound_by for a kernel call that must move `nbytes`
+    (each input read once, each output written once) and do `ops` 32-bit
+    integer operations (compares)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by="bytes")
+    return dict(bound_ms=t_ops, bound_by="operations")
+
+
+def _live(hk) -> int:
+    return int((hk != -2**31).sum())
+
+
+def _search_bound(probe, wrow, window: int, n_build: int, mc,
+                  entry_bytes: int = 4) -> dict:
+    """Bound of a binary-search window probe (K3, K4) over the probe
+    slots `probe`, one window per entry of `wrow` (entry_bytes read per
+    entry: the anchor, and K4's tile id): the probes read, the build keys
+    of the union of the windows read once, one build value per matched
+    probe (val[hi - 1]; mc is the call's counts), both outputs written;
+    two searches of ceil(log2(window)) compares per live probe."""
+    starts = torch.sort((wrow.long() * 128).clamp(
+        0, max(0, n_build - window))).values
+    union = (int((starts[1:] - starts[:-1]).clamp(max=window).sum())
+             + window if starts.numel() else 0)
+    nbytes = (12 * probe.numel() + entry_bytes * wrow.numel() + 4 * union
+              + 4 * int((mc > 0).sum()))
+    return _bound(nbytes, 2 * _live(probe) * max(1, (window - 1).bit_length()))
 
 
 def _radix_4096_plan():
@@ -97,8 +141,8 @@ def _device_cols(rel_pair, dev):
 
 
 def _generate(ni, no, **kw):
-    from hash_join_codes_knl_tpu import native
-    from hash_join_codes_knl_tpu.relgen.generate import generate
+    from hash_join_codes_knl_tpu_torch import native
+    from hash_join_codes_knl_tpu_torch.relgen.generate import generate
 
     if not native.available():
         raise RuntimeError("the native relation generator did not build "
@@ -159,7 +203,9 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
     err = _max_abs_err(got, want)
     ms = _median_ms(lambda: cl.flat_to_rows(*args), 20)
     plain_ms = _median_ms(lambda: cl.flat_to_rows_torch(*args), 5)
+    # keys and values read, both padded columns written
     out["flat_to_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               **_bound(8 * n + 8 * cap),
                                shape=f"n={n} cap={cap} C={C}")
     _print(f"phase kernels: flat_to_rows equal at n=1000 C=8, n=64M C=64 "
            f"and the headline's n={n} cap={cap} C={C}; kernel {ms:.4f} ms, "
@@ -176,9 +222,13 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
     _check_equal("merge_probe", got, want)
     ms = _median_ms(lambda: mp.merge_probe(*full), 20)
     plain_ms = _median_ms(lambda: mp.merge_probe_torch(*full), 3)
+    # the dense sweep compares every live probe with every window slot
+    cap = ohk.shape[0]
     out["merge_probe"] = dict(
         max_abs_err=_max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
-        shape=f"probes={ohk.shape[0]} tile={tile} window={window}")
+        **_bound(4 * cap + 4 * (cap // tile) + 8 * bhk.shape[0] + 8 * cap,
+                 _live(ohk) * window),
+        shape=f"probes={cap} tile={tile} window={window}")
     _print(f"phase kernels: merge_probe equal at 16 tiles and all "
            f"{ohk.shape[0] // tile} tiles, tile {tile}, window {window}; "
            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -196,15 +246,18 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
     got, want = mg.merge_probe_gather(*sub), mg.merge_probe_torch(*sub)
     _check_equal("merge_probe_gather", got, want)
     err = _max_abs_err(got, want)
+    bound = _search_bound(sub[0], sub[3], window, bhk.shape[0], got[1])
     ms = _median_ms(lambda: mg.merge_probe_gather(*sub), 20)
     plain_ms = _median_ms(lambda: mg.merge_probe_torch(*sub), 3)
     full = (ohk, bhk, bval, wrow, tile, window)
     got = mg.merge_probe_gather(*full)
     _check_equal("merge_probe_gather vs merge_probe, full", got,
                  mp.merge_probe(*full))
+    bound_full = _search_bound(ohk, wrow, window, bhk.shape[0], got[1])
     ms_full = _median_ms(lambda: mg.merge_probe_gather(*full), 10)
     out["merge_probe_gather"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_full=ms_full,
+        bound_ms_full=bound_full["bound_ms"], **bound,
         shape=f"256 of {n_tiles} tiles, tile={tile} window={window}")
     _print(f"phase kernels: merge_probe_gather equal to plain on 256 of "
            f"{n_tiles} tiles and to merge_probe on all, tile {tile}, "
@@ -225,6 +278,19 @@ def _spread_tiles(pk, tpid, tile: int, count: int):
     sel = torch.linspace(0, n_tiles - 1, count, device=pk.device).long()
     return (pk.view(n_tiles, tile)[sel].reshape(-1).contiguous(),
             tpid[sel].contiguous())
+
+
+def _tile_probe_bound(pk, tk, tpid, tile: int) -> dict:
+    """Bound of the tile probe over the probe column pk: each live probe
+    against the live slots of its partition's row; probes, tile ids and
+    the rows used read once, both outputs written."""
+    n_tiles = tpid.shape[0]
+    live_probes = (pk.view(n_tiles, tile) != -2**31).sum(1)
+    live_slots = (tk != -2**31).sum(1)
+    rows_used = int(torch.unique(tpid).numel())
+    return _bound(12 * pk.shape[0] + 4 * n_tiles
+                  + 8 * tk.shape[1] * rows_used,
+                  int((live_probes * live_slots[tpid.long()]).sum()))
 
 
 def _kernel_probe_tiles(dev, cols_h) -> dict:
@@ -255,7 +321,10 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
     err = _max_abs_err(got, want)
     ms = _median_ms(lambda: pt.probe_tiles(*sub), 20)
     plain_ms = _median_ms(lambda: pt.probe_tiles_torch(*sub), 3)
+    bound = _tile_probe_bound(pk_s, lay["tk"], tp_s, tile)
     full = (lay["pk"], lay["tk"], lay["tv"], lay["tpid"], tile)
+    bound_sort = _tile_probe_bound(lay["pk"], lay["tk"], lay["tpid"],
+                                   tile)["bound_ms"]
     n_sort = lay["tpid"].shape[0]
     ms_sort = _median_ms(lambda: pt.probe_tiles(*full), 5)
     del lay, full, sub, got, want
@@ -272,6 +341,8 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
     n_radix = lay["tpid"].shape[0]
     slots_radix = lay["tk"].shape[1]
     ms_radix = _median_ms(lambda: pt.probe_tiles(*full), 3)
+    bound_radix = _tile_probe_bound(lay["pk"], lay["tk"], lay["tpid"],
+                                    128)["bound_ms"]
     del lay, full, sub
     _print(f"phase kernels: probe_tiles equal to plain on a small layout and "
            f"on 256 spread tiles of the 16M x 256M sort-mode (tile {tile}, "
@@ -282,6 +353,8 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
            f"{ms_radix:.4f} ms on all radix tiles")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 ms_full_sort=ms_sort, ms_full_radix=ms_radix,
+                bound_ms_full_sort=bound_sort,
+                bound_ms_full_radix=bound_radix, **bound,
                 shape=f"256 of {n_sort} tiles, tile={tile} "
                       f"slots={plan.slots}")
 
@@ -305,6 +378,8 @@ def _kernel_radix_partition(cols_h) -> dict:
     del want
     ms = _median_ms(lambda: rp.radix_partition(*args), 10)
     plain_ms = _median_ms(lambda: rp.radix_partition_torch(*args), 3)
+    # keys and values read, the regions (keys and values) written
+    bound = _bound(8 * hk.shape[0] + 8 * got[0].shape[0])
     del hk, v
     args2 = (got[0], got[1], b2, b1, 0, 32768, 1 << b1)
     got2, want2 = rp.radix_partition(*args2), rp.radix_partition_torch(*args2)
@@ -321,7 +396,8 @@ def _kernel_radix_partition(cols_h) -> dict:
            f"{n2} slots); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
            f"(pass 1); kernel {ms2:.4f} ms (pass 2 batch)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_pass2=ms2,
-                shape=f"pass 1 of (6, 6): n={HEADLINE[1]} F=64")
+                bound_ms_pass2=_bound(8 * n1 + 8 * n2)["bound_ms"],
+                **bound, shape=f"pass 1 of (6, 6): n={HEADLINE[1]} F=64")
 
 
 def _wrappers() -> dict:
@@ -335,6 +411,7 @@ def _wrappers() -> dict:
     return {"flat_to_rows": cl.flat_to_rows,
             "merge_probe": mp.merge_probe,
             "merge_probe_gather": mg.merge_probe_gather,
+            "merge_probe_gather_indexed": mg.merge_probe_gather_indexed,
             "probe_tiles": pt.probe_tiles,
             "radix_partition": rp.radix_partition}
 
@@ -343,9 +420,10 @@ def _launches():
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
-def _reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+def _set_launches(counts=None):
+    """Every wrapper's launch count to counts[name], or to 0."""
+    for k, fn in _wrappers().items():
+        fn.launches = counts[k] if counts else 0
 
 
 def _delta(before):
@@ -365,7 +443,7 @@ def _oracle_count(ik: np.ndarray, ok: np.ndarray) -> int:
 
 def _join_vs_oracle(label, data, dev, want_kernels, plan=None,
                     want=None):
-    from hash_join_codes_knl_tpu.engine.oracle import (
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
         join_oracle,
         multiset_digest,
     )
@@ -388,6 +466,7 @@ def _join_vs_oracle(label, data, dev, want_kernels, plan=None,
     replans = f"re-plans {attempts - 1}; " if attempts else ""
     _print(f"phase join: {label} digest equals the oracle's ({got[0]} rows); "
            f"{replans}launches {d}; final plan {plan}")
+    return plan
 
 
 def phase_joins(dev, data_1m):
@@ -399,7 +478,14 @@ def phase_joins(dev, data_1m):
                     ["flat_to_rows", "merge_probe_gather"])
     del data_4m
     zipf, _ = _generate(*HEADLINE_4M, seed=43, mode="zipf", zipf=1.0)
-    _join_vs_oracle("zipf 1.0 4M x 64M", zipf, dev, [])
+    plan = _join_vs_oracle("zipf 1.0 4M x 64M", zipf, dev, [])
+    two, qs, n_wide = _two_class_plan(_device_cols(zipf, dev), plan)
+    final = _join_vs_oracle(
+        f"zipf 1.0 4M x 64M two-class (tile spans p50/p90/p99/max {qs}, "
+        f"{n_wide} wide tiles)", zipf, dev, ["merge_probe_gather_indexed"],
+        two)
+    if final != two:
+        raise AssertionError(f"4M two-class join re-planned to {final}")
     del zipf
     # M:N: a 1M build over 250K distinct keys
     rng = np.random.default_rng(44)
@@ -419,8 +505,8 @@ def phase_joins(dev, data_1m):
 
 
 def phase_headline(dev, cols, gen_s) -> None:
-    from hash_join_codes_knl_tpu.relation import expected_join_tuples
     from hash_join_codes_knl_tpu_torch.engine.phj import join
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
 
     torch.cuda.reset_peak_memory_stats(dev)
     before = _launches()
@@ -432,22 +518,13 @@ def phase_headline(dev, cols, gen_s) -> None:
     if d["flat_to_rows"] == 0 or d["merge_probe_gather"] == 0:
         raise AssertionError(f"headline: K1/K3 not launched: {d}")
     del res
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res, _ = join(*cols, plan)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        del res
-    med = float(np.median(times))
+    med, runs = _median_s(lambda: join(*cols, plan))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     _print(f"phase headline: 16M x 256M uniform, generation {gen_s:.3f} s "
            f"(host); join_tuples {got} exact; launches {d}; plan {plan}")
     _print(f"phase headline: join median of 3 {med:.6f} s = "
-           f"{HEADLINE[1] / med:.1f} probe-tuples/s (runs "
-           f"{[round(t, 6) for t in times]}); peak device memory "
-           f"{peak:.2f} GiB")
+           f"{HEADLINE[1] / med:.1f} probe-tuples/s (runs {runs}); peak "
+           f"device memory {peak:.2f} GiB")
 
 
 def _stage_breakdown(cols, plan) -> dict:
@@ -484,7 +561,7 @@ def _stage_breakdown(cols, plan) -> dict:
             for i, n in enumerate(names)}
 
 
-def phase_zipf_headline(dev) -> None:
+def phase_zipf_headline(dev):
     from hash_join_codes_knl_tpu_torch.engine.config import plan_join
     from hash_join_codes_knl_tpu_torch.engine.phj import join
 
@@ -497,7 +574,7 @@ def phase_zipf_headline(dev) -> None:
     got = int(res.join_tuples)
     dt = time.perf_counter() - t0
     d = _delta(before)
-    del res, cols
+    del res
     want = _oracle_count(data[0].keys, data[1].keys)
     if got != want:
         raise AssertionError(f"zipf headline: {got} != oracle {want}")
@@ -506,6 +583,156 @@ def phase_zipf_headline(dev) -> None:
            f"join_tuples {got} equal the searchsorted count; {attempts - 1} "
            f"re-plans from {plan_join(*HEADLINE)} to final plan {plan}; "
            f"join incl. re-plans {dt:.6f} s")
+    return cols, plan, want
+
+
+def _two_class_plan(cols, plan):
+    """The two-class plan for these columns, from the single-class plan
+    that join() settled on: the per-tile spans at that plan (the anchors
+    _merge_windows uses), the narrow window from the p90 span, the wide
+    window the single-class one, and wide_cap the count of tiles past the
+    narrow window rounded up to a multiple of 128.  Returns (plan, span
+    quantiles p50/p90/p99/max, wide tile count).  Its sorts launch K1,
+    which is set-up, not the path's: the launch counts are put back."""
+    from hash_join_codes_knl_tpu_torch.engine import phj
+
+    counts = _launches()
+    ik, iv, ok, ov = cols
+    tile, window, rows, cap = phj._merge_params(plan, ik.shape[0],
+                                                ok.shape[0])
+    bhk, _ = phj._merge_sort_side(ik, iv, rows * 128, plan.factor)
+    ohk, _ = phj._merge_sort_probe(ok, ov, cap, plan.probe_chunks,
+                                   plan.factor)
+    _set_launches(counts)
+    wrow_raw, hi_row = phj._window_rows(bhk, ohk, tile, rows)
+    del bhk, ohk
+    span = phj._anchored(wrow_raw, hi_row, window, rows)[1]
+    qs = torch.quantile(span.double(), torch.tensor(
+        [0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=span.device))
+    qs = [int(q) for q in qs.tolist()]
+    narrow = phj.window_from_span(qs[1])
+    if narrow >= window:
+        raise AssertionError(f"two-class: the p90 span's window {narrow} is "
+                             f"not below the single-class window {window}")
+    span = phj._anchored(wrow_raw, hi_row, narrow, rows)[1]
+    n_wide = int((span > narrow).sum())
+    two = dataclasses.replace(plan, window=narrow, window_wide=window,
+                              wide_cap=max(128, -(-n_wide // 128) * 128))
+    return two, qs, n_wide
+
+
+def _median_s(fn):
+    """Median host-clock seconds of 3 runs of fn(), each fenced by a
+    synchronize (after the caller's checked warm-up run), and the runs."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    return float(np.median(times)), [round(t, 6) for t in times]
+
+
+def phase_two_class(dev, cols, plan, want):
+    """The two-class window geometry at 16M x 256M Zipf z=1.0, on the
+    Zipf phase's columns: exact cardinality, no re-plan (the final plan
+    keeps window_wide > 0), K4 launched; median of 3 beside the
+    single-class join's at the same tile and chunks."""
+    from hash_join_codes_knl_tpu_torch.engine.phj import join
+
+    two, qs, n_wide = _two_class_plan(cols, plan)
+    _print(f"phase two-class: tile spans at {plan}: p50/p90/p99/max {qs}; "
+           f"narrow window {two.window} (p90), wide {two.window_wide}, "
+           f"{n_wide} wide tiles, wide_cap {two.wide_cap}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = _launches()
+    res, final = join(*cols, two)
+    d = _delta(before)
+    got = int(res.join_tuples)
+    del res
+    if got != want:
+        raise AssertionError(f"two-class: join_tuples {got} != {want}")
+    if final != two or not final.window_wide:
+        raise AssertionError(f"two-class: re-planned to {final}")
+    if d["merge_probe_gather_indexed"] == 0:
+        raise AssertionError(f"two-class: K4 not launched: {d}")
+    med2, runs2 = _median_s(lambda: join(*cols, two))
+    peak2 = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    med1, runs1 = _median_s(lambda: join(*cols, plan))
+    peak1 = torch.cuda.max_memory_allocated(dev) / 2**30
+    _print(f"phase two-class: 16M x 256M z=1.0 join_tuples {got} equal the "
+           f"searchsorted count; launches {d}; final plan {final}")
+    _print(f"phase two-class: join median of 3 {med2:.6f} s (runs {runs2}), "
+           f"peak {peak2:.2f} GiB; single-class at the same tile and chunks "
+           f"{med1:.6f} s (runs {runs1}), peak {peak1:.2f} GiB; two-class / "
+           f"single-class {med2 / med1:.4f}")
+    return two, n_wide
+
+
+def _kernel_indexed(dev, cols, two, n_wide) -> dict:
+    """K4 against its plain version on 256 entries spread over the
+    two-class layout's tile list (wide tiles, narrow pads, and 8 repeated
+    entries), written onto the narrow pass's outputs; then K4's time on
+    the whole wide pass.  Runs outside the counted path runs."""
+    from hash_join_codes_knl_tpu_torch.engine import phj
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+
+    ik, iv, ok, ov = cols
+    tile, window, rows, cap = phj._merge_params(two, ik.shape[0],
+                                                ok.shape[0])
+    bhk, bval = phj._merge_sort_side(ik, iv, rows * 128, two.factor)
+    ohk, _ = phj._merge_sort_probe(ok, ov, cap, two.probe_chunks, two.factor)
+    wrow, stats, (tidx, wrow_c, wide_ovf) = phj._merge_windows(
+        bhk, ohk, tile, window, rows, two.window_wide, two.wide_cap)
+    if int(stats[0]) or int(wide_ovf):
+        raise AssertionError(f"two-class layout overflowed: {stats.tolist()}"
+                             f", wide past the cap {int(wide_ovf)}")
+    narrow = phj._PROBES[phj._merge_impl(two, window)]
+    mv0, mc0 = narrow(ohk, bhk, bval, wrow, tile, window)
+    wide = two.window_wide
+    n = tidx.shape[0]
+    sel = torch.linspace(0, n - 1, 248, device=dev).long()
+    sel = torch.cat([sel, sel[:8]])
+    ti, wc = tidx[sel].contiguous(), wrow_c[sel].contiguous()
+
+    def args(mv, mc):
+        return (ohk, bhk, bval, wc, ti, mv, mc, tile, wide)
+
+    got = mg.merge_probe_gather_indexed(*args(mv0.clone(), mc0.clone()))
+    want = mg.merge_probe_gather_indexed_torch(*args(mv0.clone(),
+                                                     mc0.clone()))
+    _check_equal("merge_probe_gather_indexed, 256 entries", got, want)
+    err = _max_abs_err(got, want)
+
+    def listed_bound(ids, anchors, mc):
+        ids = ids.long()
+        return _search_bound(ohk.view(-1, tile)[ids], anchors, wide,
+                             bhk.shape[0], mc.view(-1, tile)[ids], 8)
+
+    bound = listed_bound(ti, wc, got[1])
+    del got, want
+    mv, mc = mv0.clone(), mc0.clone()
+    ms = _median_ms(lambda: mg.merge_probe_gather_indexed(*args(mv, mc)), 20)
+    plain_ms = _median_ms(
+        lambda: mg.merge_probe_gather_indexed_torch(*args(mv, mc)), 3)
+    full = (ohk, bhk, bval, wrow_c, tidx, mv, mc, tile, wide)
+    ms_full = _median_ms(lambda: mg.merge_probe_gather_indexed(*full), 10)
+    bound_full = listed_bound(tidx, wrow_c, mc)["bound_ms"]
+    pads = int((sel >= n_wide).sum())  # wide tiles come first
+    _print(f"phase kernels: merge_probe_gather_indexed equal to plain on "
+           f"256 entries ({pads} narrow pads, 8 repeats) of the {n}-entry "
+           f"tile list of the 16M x 256M Zipf two-class layout, tile {tile}, "
+           f"wide window {wide}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+           f" (256 entries); kernel {ms_full:.4f} ms on the whole wide pass")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_full=ms_full,
+                bound_ms_full=bound_full, **bound,
+                shape=f"256 entries of {n}, tile={tile} window={wide}")
 
 
 def phase_padded_joins(dev, data_1m) -> None:
@@ -513,11 +740,11 @@ def phase_padded_joins(dev, data_1m) -> None:
     plans of the TPU engine's hardware battery on its 262144 x 3.5M
     relation, 1M x 8M in sort mode, and 4M x 16M in the 4096-way radix
     mode (the phj_radix_4096way bench row's relation and plan)."""
-    from hash_join_codes_knl_tpu.engine.oracle import (
+    from hash_join_codes_knl_tpu_torch.engine.config import JoinPlan
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
         join_oracle,
         multiset_digest,
     )
-    from hash_join_codes_knl_tpu_torch.engine.config import JoinPlan
 
     draws, n_build, n_hits, n_miss = BATTERY
     rng = np.random.default_rng(3)
@@ -588,8 +815,8 @@ RESULT_COLUMNS = ("probe_keys", "probe_vals", "match_vals", "match_cnts",
 def phase_padded(dev, cols, label, plan) -> None:
     """16M x 256M through join() in one padded mode: exact cardinality,
     no overflow, the kernels launched, median of 3 and peak memory."""
-    from hash_join_codes_knl_tpu.relation import expected_join_tuples
     from hash_join_codes_knl_tpu_torch.engine.phj import join
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -609,23 +836,14 @@ def phase_padded(dev, cols, label, plan) -> None:
             raise AssertionError(f"{label}: {k} not launched: {d}")
     shape = res.probe_keys.shape[0]
     del res
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res, _ = join(*cols, plan)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        del res
+    med, runs = _median_s(lambda: join(*cols, plan))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    med = float(np.median(times))
     _print(f"phase padded: {label} 16M x 256M, join_tuples {got} exact, "
            f"pass overflow {ovf}; {shape} probe slots; launches {d}; "
            f"plan {plan}")
     _print(f"phase padded: {label} join median of 3 {med:.6f} s = "
-           f"{HEADLINE[1] / med:.1f} probe-tuples/s (runs "
-           f"{[round(t, 6) for t in times]}); peak device memory "
-           f"{peak:.2f} GiB")
+           f"{HEADLINE[1] / med:.1f} probe-tuples/s (runs {runs}); peak "
+           f"device memory {peak:.2f} GiB")
 
 
 def padded_stage_breakdown(cols, label, plan) -> None:
@@ -651,6 +869,131 @@ def padded_stage_breakdown(cols, label, plan) -> None:
            f"{stages}")
 
 
+def _npj_digests(label, data, dev) -> None:
+    """npj_join in both output orders and the chain walk, each held to
+    join_oracle's digest (unique build keys: at most one match)."""
+    from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+    from hash_join_codes_knl_tpu_torch.utils.hashing import to_numpy_u32
+
+    inner, outer = data
+    cols = _device_cols(data, dev)
+    want = multiset_digest(*join_oracle(inner.keys, inner.vals, outer.keys,
+                                        outer.vals))
+    before = _launches()
+    mv, mc, plan = npj_join(*cols)
+    k_s, v_s, mv2, mc2, plan2 = npj_join(*cols, order="sorted")
+    chain = dataclasses.replace(plan, probe_impl="chain", window=0)
+    mv3, mc3, _ = npj_join(*cols, chain)
+    d = _delta(before)
+    k, v = outer.keys, outer.vals
+    for name, keys, vals, mv_, mc_ in (
+            ("input order", k, v, mv, mc),
+            ("sorted order", to_numpy_u32(k_s), to_numpy_u32(v_s), mv2, mc2),
+            ("chain walk", k, v, mv3, mc3)):
+        if int(mc_.max()) > 1:
+            raise AssertionError(f"npj {label} {name}: multi-match rows")
+        m = mc_.cpu().numpy() == 1
+        got = multiset_digest(keys[m], vals[m], to_numpy_u32(mv_)[m])
+        if got != want:
+            raise AssertionError(f"npj {label} {name}: digest {got} != "
+                                 f"oracle {want}")
+    if plan2 != plan:
+        raise AssertionError(f"npj {label}: the orders re-planned apart: "
+                             f"{plan} vs {plan2}")
+    _print(f"phase npj: {label} digests equal the oracle's ({want[0]} rows) "
+           f"in input order, sorted order and by the chain walk; launches "
+           f"{d}; final plan {plan}")
+
+
+def phase_npj(dev, label, cols, want):
+    """npj_join at scale in both output orders: exact cardinality, K2
+    launched, median of 3 at the final plan, peak memory."""
+    from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
+
+    for order in ("input", "sorted"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = _launches()
+        out = npj_join(*cols, order=order)
+        d = _delta(before)
+        got, plan = int(out[-2].sum(dtype=torch.int64)), out[-1]
+        del out
+        if got != want:
+            raise AssertionError(f"npj {label} {order}: {got} != {want}")
+        if d["merge_probe"] == 0:
+            raise AssertionError(f"npj {label} {order}: K2 not launched {d}")
+        med, runs = _median_s(lambda: npj_join(*cols, plan, order=order))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        _print(f"phase npj: {label} order={order} match count {got} exact; "
+               f"launches {d}; final window {plan.window} tile {plan.tile} "
+               f"(buckets {plan.buckets}); median of 3 {med:.6f} s = "
+               f"{cols[2].shape[0] / med:.1f} probe-tuples/s (runs {runs}); "
+               f"peak device memory {peak:.2f} GiB")
+    return plan
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def npj_trace(cols, label, plan) -> dict:
+    """One input-order npj_join at its final plan under torch.profiler:
+    device ms by kernel name (summed intervals, largest first), the
+    device's busy share between the call's first and last kernel, and
+    K2's time and bound at this shape.  Runs outside the counted path
+    runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
+
+    torch.cuda.empty_cache()
+    npj_join(*cols, plan)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        npj_join(*cols, plan)
+        torch.cuda.synchronize()
+    ks = [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for name, a, b in ks:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    k2_ms = sum(ms for name, ms in by_name.items()
+                if "merge_probe_dense_kernel" in name)
+    if not k2_ms:
+        raise AssertionError(f"npj {label}: the trace shows no K2 kernel")
+    span = max(b for _, _, b in ks) - min(a for _, a, _ in ks)
+    busy = _union_us([(a, b) for _, a, b in ks])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # K2 as bounded in phase kernels: probes, anchors, the table and both
+    # outputs; every live probe against every window slot
+    ik, _, ok, _ = cols
+    cap = -(-ok.shape[0] // plan.tile) * plan.tile
+    window = min(-(-plan.window // 128) * 128, plan.table_size)
+    bound = _bound(4 * cap + 4 * (cap // plan.tile) + 8 * plan.table_size
+                   + 8 * cap, int((ok != 0).sum()) * window)
+    _print(f"phase npj: {label} input order, traced: {len(ks)} device "
+           f"intervals, busy {busy / 1e3:.4f} of {span / 1e3:.4f} ms between "
+           f"the first and last kernel ({busy / span:.4f}); K2 {k2_ms:.4f} "
+           f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) at "
+           f"{cap} probes, window {window}")
+    for name, ms in top[:8]:
+        _print(f"phase npj: {label} traced kernel ms {ms:.4f}  {name[:100]}")
+    return dict(ms_npj=k2_ms, bound_ms_npj=bound["bound_ms"])
+
+
 KERNELS = [
     ("flat_to_rows", "hash_join_codes_knl_tpu_torch/csrc/chunk_layout.cu",
      "hash_join_codes_knl_tpu/ops/chunk_layout.py:61"),
@@ -659,15 +1002,20 @@ KERNELS = [
     ("merge_probe_gather",
      "hash_join_codes_knl_tpu_torch/csrc/merge_probe_gather.cu",
      "hash_join_codes_knl_tpu/ops/merge_probe_gather.py:296"),
+    ("merge_probe_gather_indexed",
+     "hash_join_codes_knl_tpu_torch/csrc/merge_probe_gather.cu",
+     "hash_join_codes_knl_tpu/ops/merge_probe_pallas.py:241"),
     ("probe_tiles", "hash_join_codes_knl_tpu_torch/csrc/probe_tiles.cu",
      "hash_join_codes_knl_tpu/ops/probe_pallas.py:120"),
     ("radix_partition",
      "hash_join_codes_knl_tpu_torch/csrc/radix_partition.cu",
      "hash_join_codes_knl_tpu/ops/radix_partition_pallas.py:156"),
 ]
-# the kernels each path of join() must launch
-MERGE_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
+# the kernels each path must launch
+MERGE_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
+                 "merge_probe_gather_indexed"]
 PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition"]
+NPJ_KERNELS = ["merge_probe"]
 
 
 def main() -> None:
@@ -705,36 +1053,66 @@ def main() -> None:
            f"{_stage_breakdown(cols_h, plan_join(*HEADLINE))}")
     torch.cuda.empty_cache()
 
-    # the main paths' runs: every launch count starts at 0 just before a
-    # path, is read just after it, and only join() launches kernels there;
-    # the padded stage breakdowns run after the read
-    _reset_launches()
+    # the paths' runs: every launch count starts at 0 just before a path,
+    # is read just after it, and only the path's entry points (join(),
+    # npj_join()) add to it there (the two-class plan's set-up puts its
+    # counts back); the kernel checks, stage breakdowns and the trace that
+    # need a path's plan run after the read
+    _set_launches()
     phase_joins(dev, data_1m)
     phase_headline(dev, cols_h, gen_s)
     torch.cuda.empty_cache()
-    phase_zipf_headline(dev)
+    cols_z, plan_z, want_z = phase_zipf_headline(dev)
+    two, n_wide = phase_two_class(dev, cols_z, plan_z, want_z)
     merge = _launches()
     _print(f"launches, merge path: {merge}")
+    torch.cuda.empty_cache()
+    stats["merge_probe_gather_indexed"] = _kernel_indexed(dev, cols_z, two,
+                                                          n_wide)
+    del cols_z
+    torch.cuda.empty_cache()
 
-    _reset_launches()
+    _set_launches()
     phase_padded_joins(dev, data_1m)
-    del data_1m
     phase_padded(dev, cols_h, "sort mode", _sort_plan(*HEADLINE))
     phase_padded(dev, cols_h, "radix 4096-way", _radix_4096_plan())
     padded = _launches()
     _print(f"launches, padded path: {padded}")
     padded_stage_breakdown(cols_h, "sort mode", _sort_plan(*HEADLINE))
     padded_stage_breakdown(cols_h, "radix 4096-way", _radix_4096_plan())
+    torch.cuda.empty_cache()
+
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
+
+    _set_launches()
+    _npj_digests(f"{SMALL[0]} x {SMALL[1]}", data_1m, dev)
+    del data_1m
+    data_n, _ = _generate(*NPJ_4M, seed=42, mode="uniform")
+    cols_n = _device_cols(data_n, dev)
+    del data_n
+    phase_npj(dev, f"{NPJ_4M[0]} x {NPJ_4M[1]}", cols_n,
+              expected_join_tuples(*NPJ_4M))
+    del cols_n
+    plan_n = phase_npj(dev, f"{HEADLINE[0]} x {HEADLINE[1]}", cols_h,
+                       expected_join_tuples(*HEADLINE))
+    npj = _launches()
+    _print(f"launches, npj path: {npj}")
+    stats["merge_probe"].update(npj_trace(
+        cols_h, f"{HEADLINE[0]} x {HEADLINE[1]}", plan_n))
     del cols_h
     for path, names, got in (("merge", MERGE_KERNELS, merge),
-                             ("padded", PADDED_KERNELS, padded)):
+                             ("padded", PADDED_KERNELS, padded),
+                             ("npj", NPJ_KERNELS, npj)):
         for name in names:
             if got[name] == 0:
-                raise AssertionError(f"{name} was never launched by join() "
-                                     f"on the {path} path")
+                raise AssertionError(f"{name} was never launched on the "
+                                     f"{path} path")
 
+    # no single PyTorch call computes any of these kernels' functions
+    # (PERF.md says why, kernel by kernel), so library_ms is null
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=merge[name] + padded[name], **stats[name])
+                    launches=merge[name] + padded[name] + npj[name],
+                    library_ms=None, **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))
     _print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """The query engine's partitioned hash join (merge, padded and radix
-modes) in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
+modes, the two-class window geometry) and its no-partition hash join
+(NPJ) in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
 
 A port of ``hash_join_codes_knl_tpu`` (JAX/Pallas on a TPU), which stays
-the reference it is tested against.  This package imports no JAX; it
-reuses the reference's numpy-only host modules (the relation generator,
-``Relation`` and the join oracle).
+the reference it is tested against.  This package imports no JAX and
+nothing of the reference package: it keeps its own copies of the
+numpy-only host modules (the relation generator, ``Relation`` and the
+join oracle).
 """
 
 __version__ = "0.1.0"
@@ -17,10 +19,12 @@ _EXPORTS = {
     "plan_join": (".engine.config", "plan_join"),
     "join": (".engine.phj", "join"),
     "materialize": (".engine.phj", "materialize"),
-    "generate": ("hash_join_codes_knl_tpu.relgen.generate", "generate"),
-    "join_oracle": ("hash_join_codes_knl_tpu.engine.oracle", "join_oracle"),
-    "multiset_digest": ("hash_join_codes_knl_tpu.engine.oracle",
-                        "multiset_digest"),
+    "NpjPlan": (".engine.npj", "NpjPlan"),
+    "plan_npj": (".engine.npj", "plan_npj"),
+    "npj_join": (".engine.npj", "npj_join"),
+    "generate": (".relgen.generate", "generate"),
+    "join_oracle": (".engine.oracle", "join_oracle"),
+    "multiset_digest": (".engine.oracle", "multiset_digest"),
 }
 __all__ = sorted(_EXPORTS)
 

@@ -3,8 +3,8 @@
 Counterpart of ``hash_join_codes_knl_tpu/engine/config.py``.  `JoinPlan`
 carries every field of the JAX plan, so that a JAX plan converts one to
 one (`engine/convert.py`), and `plan_join` derives the same geometry.
-The merge modes read `tile`, `window`, `probe_chunks` and the
-opportunistic flags; the padded modes read `p_bits`, `slots`, `tile`,
+The merge modes read `tile`, `window`, `probe_chunks`, the two-class
+`window_wide` and `wide_cap`, and the opportunistic flags; the padded modes read `p_bits`, `slots`, `tile`,
 `skip_bits` and `partition_impl`, and the radix mode `pass_bits`.
 """
 
@@ -40,7 +40,9 @@ class JoinPlan:
     # tests)
     probe_impl: str = "merge"
     window: int = 0  # merge-mode probe window in slots (0 = auto estimate)
-    # two-class window geometry: not ported (must stay 0)
+    # two-class window geometry (merge modes): window_wide > 0 re-probes
+    # the tiles whose span exceeds the (explicit, narrower) `window` at
+    # this width; wide_cap bounds how many (0 = max(8, tiles // 16))
     window_wide: int = 0
     wide_cap: int = 0
     # boundary-select engine of the JAX gather kernel; carried for plan

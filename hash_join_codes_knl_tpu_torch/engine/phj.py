@@ -29,8 +29,15 @@ every value the uint32 bits in an int32 tensor.  Columns are flat
 (cap,): the JAX package's chunk-row 2-D form exists only for TPU
 retiling.
 
-Not ported yet (ROADMAP.md): the two-class window geometry
-(``window_wide``), ``materialize_expanded`` and the staged pipeline.
+Two-class window geometry (``plan.window_wide > 0``): a narrow first
+pass at ``plan.window`` over every tile, then K4
+(``merge_probe_gather_indexed``) re-probes the first ``wide_cap`` tiles
+whose span exceeds it at ``window_wide``, in place.  More wide tiles
+than ``wide_cap`` is a counted plan-opt violation; join() then collapses
+the plan to one class at ``window_wide``.
+
+Not ported yet (ROADMAP.md): ``materialize_expanded`` and the staged
+pipeline.
 """
 
 from __future__ import annotations
@@ -43,7 +50,10 @@ import torch
 
 from ..ops.chunk_layout import flat_to_rows
 from ..ops.merge_probe import merge_probe, merge_probe_torch
-from ..ops.merge_probe_gather import merge_probe_gather
+from ..ops.merge_probe_gather import (
+    merge_probe_gather,
+    merge_probe_gather_indexed,
+)
 from ..ops.partition import (
     build_dense_table,
     partition_padded,
@@ -103,22 +113,15 @@ class JoinResult:
         return self.match_cnts.sum(dtype=torch.int64)
 
 
-def _reject_unported(plan: JoinPlan) -> None:
-    if plan.window_wide:
-        raise NotImplementedError(
-            "window_wide > 0 is the two-class window geometry, not ported "
-            "yet (ROADMAP.md Queue 2, merge_probe_gather_indexed)"
-        )
-
-
 def _merge_params(plan: JoinPlan, ni: int, no: int):
     """Static geometry of the merge pipeline: (tile, window, rows_total,
     cap), exactly as the JAX package derives it.  The auto window covers
     a tile's expected build span (mean plus fluctuation terms plus the
     row-granular anchor margin); with probe_chunks the span grows by
     about the chunk count, and cap becomes a multiple of chunks * tile
-    so no tile straddles two chunks."""
-    _reject_unported(plan)
+    so no tile straddles two chunks.  A two-class plan needs an explicit
+    narrow window below window_wide, and its wide pass is the gather
+    kernel (K4), so window_wide is checked against the gather ceiling."""
     tile = plan.tile
     chunks = max(1, plan.probe_chunks)
     quantum = tile * chunks
@@ -127,6 +130,17 @@ def _merge_params(plan: JoinPlan, ni: int, no: int):
         # the TPU relayout kernel's 1024-slot row rule, kept for parity
         quantum *= 8
         cap = -(-no // quantum) * quantum
+    if plan.window_wide:
+        if not plan.window or plan.window_wide <= plan.window:
+            raise ValueError(
+                "window_wide requires an explicit narrow window smaller "
+                f"than it (got window={plan.window}, "
+                f"window_wide={plan.window_wide})"
+            )
+        _check_explicit_window(
+            dataclasses.replace(plan, probe_impl="merge_gather"),
+            tile, plan.window_wide,
+        )
     if plan.window:
         window = plan.window
         _check_explicit_window(plan, tile, window)
@@ -178,16 +192,16 @@ def _merge_sort_probe(keys, vals, pad_to: int, chunks: int, factor: int):
                                         factor))
 
 
-def _merge_windows(bhk, ohk, tile: int, window: int, rows_total: int):
-    """Per-tile window anchor rows from a coarse searchsorted of each
-    tile's first and last key against the first key of every 128-slot
-    build row.  Returns (wrow, stats), stats = [count of tiles whose span
-    exceeds the window, max required span].
+def _window_rows(bhk, ohk, tile: int, rows_total: int):
+    """Unclamped anchor row and end row of every probe tile, from a
+    coarse searchsorted of the tile's first and last key against the
+    first key of every 128-slot build row.
 
     Anchors are row-granular: the left search minus one row (with
     duplicate keys a run can start inside the row before the first row
     whose first key reaches the tile minimum), never before the last row
-    that holds a build pad, clipped so the window fits the build side."""
+    that holds a build pad.  Rows from the end row on hold only keys past
+    the tile's maximum."""
     lo = ohk[::tile].contiguous()
     hi = ohk[tile - 1 :: tile].contiguous()
     coarse = bhk.view(rows_total, 128)[:, 0].contiguous()
@@ -197,11 +211,49 @@ def _merge_windows(bhk, ohk, tile: int, window: int, rows_total: int):
     first_real = torch.searchsorted(
         coarse, torch.full((1,), _BIASED_ONE, dtype=torch.int32,
                            device=coarse.device)) - 1
-    wrow = torch.maximum(wrow, first_real).clamp(0, rows_total - window // 128)
-    span = (hi_row - wrow) * 128
-    overflow = (span > window).sum()
-    max_span = span.max() if span.numel() else overflow.new_zeros(())
-    return wrow.to(torch.int32), torch.stack([overflow, max_span])
+    return torch.maximum(wrow, first_real), hi_row
+
+
+def _anchored(wrow_raw, hi_row, window: int, rows_total: int):
+    """Anchor rows clipped so a `window`-slot window fits the build side,
+    and each tile's required span in slots from its anchor."""
+    wrow = wrow_raw.clamp(0, rows_total - window // 128)
+    return wrow, (hi_row - wrow) * 128
+
+
+def _merge_windows(bhk, ohk, tile: int, window: int, rows_total: int,
+                   window_wide: int = 0, wide_cap: int = 0):
+    """Per-tile window anchor rows (_window_rows), clipped so the window
+    fits the build side.  Returns (wrow, stats), stats = [count of tiles
+    whose span exceeds the window, max required span].
+
+    window_wide > 0 (the two-class geometry) adds a third value (tidx,
+    wrow_wide, wide_ovf): the first wide_cap tiles whose span exceeds the
+    narrow window, in ascending order, then narrow tiles in ascending
+    order as pads (re-probing a tile at a wider window from a lower
+    anchor is idempotent: the extra slots hold keys outside the tile's
+    range); their anchors re-clamped for the wide width; and the count of
+    wide tiles past wide_cap (a plan-opt violation).  stats[0] then
+    counts only spans past the wide window, and the max span takes the
+    wide span for wide tiles."""
+    wrow_raw, hi_row = _window_rows(bhk, ohk, tile, rows_total)
+    wrow, span = _anchored(wrow_raw, hi_row, window, rows_total)
+    if not window_wide:
+        overflow = (span > window).sum()
+        max_span = span.max() if span.numel() else overflow.new_zeros(())
+        return wrow.to(torch.int32), torch.stack([overflow, max_span])
+    wrow_w, span_w = _anchored(wrow_raw, hi_row, window_wide, rows_total)
+    wide = span > window
+    overflow = (wide & (span_w > window_wide)).sum()
+    spans = torch.where(wide, span_w, span)
+    max_span = spans.max() if spans.numel() else overflow.new_zeros(())
+    wide_ovf = (wide.sum() - wide_cap).clamp(min=0)
+    # wide tiles first, each class in ascending tile order: a stable sort
+    # of the class flag equals the JAX package's (flag, index) sort
+    order = torch.sort((~wide).to(torch.int32), stable=True).indices
+    tidx = order[:wide_cap]
+    return (wrow.to(torch.int32), torch.stack([overflow, max_span]),
+            (tidx.to(torch.int32), wrow_w[tidx].to(torch.int32), wide_ovf))
 
 
 def _check_explicit_window(plan: JoinPlan, tile: int, window: int) -> None:
@@ -264,20 +316,37 @@ _PROBES = {
 
 
 def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
-                 tile: int, window: int) -> JoinResult:
+                 tile: int, window: int, wide=None) -> JoinResult:
+    """The window probe at `window`; with `wide` (the two-class
+    geometry, _merge_windows' third value) the wide pass K4 follows.
+    Under "merge_jnp" one plain pass at window_wide stands for both (the
+    JAX package's oracle: a lower anchor with a wider window is exact
+    for every tile)."""
     impl = _merge_impl(plan, window)
     try:
         probe = _PROBES[impl]
     except KeyError:
         raise ValueError(f"unknown merge probe_impl {impl!r}") from None
-    mv, mc = probe(ohk, bhk, bval, wrow, tile, window)
-    # third statistic: plan-optimization violations.  The gather probe's
-    # max value relies on value-ordered runs, so a unique_build plan
-    # whose build side has adjacent equal keys is counted there and
-    # join() downgrades it (the JAX package's rule, kept for parity)
+    # third statistic: plan-optimization violations: wide tiles past
+    # wide_cap, and (below) unique_build duplicates
     viol = overflow.new_zeros(())
+    if wide is not None and impl == "merge_jnp":
+        mv, mc = probe(ohk, bhk, bval, wrow, tile, plan.window_wide)
+    else:
+        mv, mc = probe(ohk, bhk, bval, wrow, tile, window)
+    if wide is not None:
+        tidx, wrow_c, wide_ovf = wide
+        if impl != "merge_jnp":
+            mv, mc = merge_probe_gather_indexed(ohk, bhk, bval, wrow_c, tidx,
+                                                mv, mc, tile,
+                                                plan.window_wide)
+        viol = viol + wide_ovf
+    # the gather probe's max value relies on value-ordered runs, so a
+    # unique_build plan whose build side has adjacent equal keys is
+    # counted there and join() downgrades it (the JAX package's rule,
+    # kept for parity)
     if plan.unique_build and impl == "merge_gather":
-        viol = ((bhk[1:] == bhk[:-1]) & (bhk[1:] != BIAS)).sum()
+        viol = viol + ((bhk[1:] == bhk[:-1]) & (bhk[1:] != BIAS)).sum()
     stats = torch.cat([overflow, viol[None]])
     return JoinResult(_unscramble(ohk, plan.factor), ov, mv, mc, stats)
 
@@ -288,16 +357,30 @@ def phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
     are 1-D int32 tensors (uint32 bits) on one device; the result's
     build_counts is [window-overflow tile count, max required span,
     plan-opt violations] and must be all zero but the span to be
-    complete."""
+    complete.  A two-class plan whose wide window is wider than the build
+    side is refused, as the JAX package refuses it (its window slice
+    cannot exceed the build side)."""
     ni, no = inner_keys.shape[0], outer_keys.shape[0]
     tile, window, rows_total, cap = _merge_params(plan, ni, no)
+    if plan.window_wide > rows_total * 128:
+        raise ValueError(
+            f"window_wide={plan.window_wide} is wider than the build side "
+            f"({rows_total * 128} slots): use a single-class plan"
+        )
     bhk, bval = _merge_sort_side(inner_keys, inner_vals, rows_total * 128,
                                  plan.factor)
     ohk, ov = _merge_sort_probe(outer_keys, outer_vals, cap,
                                 plan.probe_chunks, plan.factor)
-    wrow, overflow = _merge_windows(bhk, ohk, tile, window, rows_total)
+    wide = None
+    if plan.window_wide:
+        wcap = plan.wide_cap or max(8, cap // tile // 16)
+        wrow, overflow, wide = _merge_windows(
+            bhk, ohk, tile, window, rows_total,
+            window_wide=plan.window_wide, wide_cap=wcap)
+    else:
+        wrow, overflow = _merge_windows(bhk, ohk, tile, window, rows_total)
     return _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan, tile,
-                        window)
+                        window, wide)
 
 
 def _padded_probe(plan: JoinPlan, pk, tk, tv, tpid, tile: int,
@@ -397,9 +480,14 @@ def phj_join(inner_keys, inner_vals, outer_keys, outer_vals,
 
 def downgrade_plan_opts(plan: JoinPlan) -> JoinPlan:
     """Re-plan response to a counted plan-optimization violation
-    (build_counts[2]): drop the opportunistic flags, geometry unchanged."""
+    (build_counts[2]): drop the opportunistic flags, and collapse a
+    two-class plan to one class at window_wide (the exact form); tile and
+    chunks unchanged."""
+    kw = {}
+    if plan.window_wide:
+        kw = dict(window=plan.window_wide, window_wide=0, wide_cap=0)
     return dataclasses.replace(plan, gather_select="flat",
-                               unique_build=False)
+                               unique_build=False, **kw)
 
 
 def window_from_span(span: int) -> int:
@@ -421,7 +509,12 @@ def replan_from_span(plan: JoinPlan, span: int) -> JoinPlan:
     """Next plan after a window overflow, sized from the measured max
     span.  Spans scale with tile * probe_chunks, so when even the padded
     span busts the cap the tile shrinks first (down to 512), then the
-    chunk count; the new window lands strictly under the cap."""
+    chunk count; the new window lands strictly under the cap.  A
+    two-class plan first collapses to one class at window_wide (even
+    the wide window missed a span)."""
+    if plan.window_wide:
+        plan = dataclasses.replace(plan, window=plan.window_wide,
+                                   window_wide=0, wide_cap=0)
     cap = replan_window_cap(plan.tile)
     span = max(int(span), 128)
     C = max(1, plan.probe_chunks)
@@ -442,12 +535,20 @@ def replan_from_span(plan: JoinPlan, span: int) -> JoinPlan:
 
 
 def _as_column(x, device) -> torch.Tensor:
+    """A join input as a contiguous 1-D int32 bit tensor.  A tensor stays
+    on its device unless `device` is given; a numpy column goes to
+    `device`, by default the card (RuntimeError where there is none)."""
     if isinstance(x, torch.Tensor):
         if x.dtype != torch.int32 or x.dim() != 1:
             raise ValueError("tensor columns must be 1-D int32 (uint32 bits)")
         return (x if device is None else x.to(device)).contiguous()
     if device is None:
-        raise ValueError("numpy inputs need an explicit device=")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available for numpy inputs: pass "
+                "device='cpu' to run the plain versions on the host"
+            )
+        device = torch.device("cuda")
     return u32_to_device(np.asarray(x), device)
 
 
@@ -457,7 +558,8 @@ def join(inner_keys, inner_vals, outer_keys, outer_vals,
     """Join with automatic window re-planning.
 
     Columns are 1-D int32 tensors holding uint32 bits, on the device to
-    run on, or numpy uint32 arrays with ``device=``.  In the merge modes
+    run on, or numpy uint32 arrays, which go to ``device`` (by default
+    the card; ``device="cpu"`` runs the plain versions).  In the merge modes
     a counted window overflow re-plans from the measured span
     (replan_from_span), and a counted plan-optimization violation
     downgrades the plan's flags (downgrade_plan_opts).  In the padded

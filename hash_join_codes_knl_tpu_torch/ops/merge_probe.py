@@ -1,10 +1,11 @@
-"""K2: the dense window probe, and the plain probe both kernels share.
+"""K2: the dense window probe, and the plain probe every window probe
+shares (K2, K3 and K4).
 
 Counterpart of ``hash_join_codes_knl_tpu/ops/merge_probe_pallas.py``
 (``merge_probe_pallas``: ``window_probe_call`` with
 ``_dense_row_result_factory``; plain version ``merge_probe_jnp``).
 
-Contract of both window probes (this one and ``merge_probe_gather``):
+Contract of the window probes (this one and ``merge_probe_gather``):
 probe tile t (slots [t*tile, (t+1)*tile) of the flat probe column) is
 compared with the build slots [wrow[t]*128, wrow[t]*128 + window), the
 start clamped into the build side as the JAX oracle's dynamic_slice
@@ -32,10 +33,14 @@ _PLAIN_BLOCK_ELEMS = 1 << 25
 
 
 def check_probe_args(probe_hk, build_hk, build_val, wrow, tile: int,
-                     window: int) -> None:
-    """Validate the window probes' inputs (shared by K2 and K3)."""
-    for name, t in (("probe_hk", probe_hk), ("build_hk", build_hk),
-                    ("build_val", build_val), ("wrow", wrow)):
+                     window: int, tile_idx=None) -> None:
+    """Validate the window probes' inputs (shared by K2, K3 and K4; K4
+    passes its tile list, and `wrow` then holds one anchor per entry)."""
+    cols = [("probe_hk", probe_hk), ("build_hk", build_hk),
+            ("build_val", build_val), ("wrow", wrow)]
+    if tile_idx is not None:
+        cols.append(("tile_idx", tile_idx))
+    for name, t in cols:
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
         if t.device != probe_hk.device:
@@ -44,8 +49,10 @@ def check_probe_args(probe_hk, build_hk, build_val, wrow, tile: int,
     if tile <= 0 or probe_hk.shape[0] % tile:
         raise ValueError(f"probe length {probe_hk.shape[0]} is not a "
                          f"multiple of tile {tile}")
-    if wrow.shape[0] != probe_hk.shape[0] // tile:
-        raise ValueError("wrow needs one anchor row per probe tile")
+    anchors = (probe_hk.shape[0] // tile if tile_idx is None
+               else tile_idx.shape[0])
+    if wrow.shape[0] != anchors:
+        raise ValueError("wrow needs one anchor row per probed tile")
     if window <= 0 or window % 128 or window > build_hk.shape[0]:
         raise ValueError(f"window {window} must be a positive multiple of "
                          f"128 no wider than the build side")
@@ -55,7 +62,7 @@ def check_probe_args(probe_hk, build_hk, build_val, wrow, tile: int,
 
 def merge_probe_torch(probe_hk, build_hk, build_val, wrow, tile: int,
                       window: int):
-    """Plain version of both window probes: every probe of a tile
+    """Plain version of the window probes: every probe of a tile
     against every slot of its window, in blocks of tiles."""
     check_probe_args(probe_hk, build_hk, build_val, wrow, tile, window)
     n_tiles = probe_hk.shape[0] // tile

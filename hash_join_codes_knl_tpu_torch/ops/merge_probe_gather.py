@@ -22,6 +22,13 @@ tile's blocks share through L1 and L2.
 
 The plain version is the dense sweep's, ``merge_probe_torch``: the JAX
 package checks both kernels against one oracle too.
+
+K4, ``merge_probe_gather_indexed``, is the two-class window geometry's
+wide pass (``window_probe_call_indexed`` via
+``merge_probe_gather_indexed`` in the JAX package): K3 over a compact
+list of tiles at the wide width, written in place onto the first pass's
+outputs.  Its plain version gathers the listed tiles, runs
+``merge_probe_torch`` on them and writes the results back.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 from . import _build
 from .merge_probe import check_probe_args, merge_probe_torch
 
-__all__ = ["merge_probe_gather", "merge_probe_torch"]
+__all__ = ["merge_probe_gather", "merge_probe_gather_indexed",
+           "merge_probe_gather_indexed_torch", "merge_probe_torch"]
 
 
 def merge_probe_gather(probe_hk, build_hk, build_val, wrow, tile: int,
@@ -53,3 +61,66 @@ def merge_probe_gather(probe_hk, build_hk, build_val, wrow, tile: int,
 
 
 merge_probe_gather.launches = 0
+
+
+def _check_indexed_args(probe_hk, build_hk, build_val, wrow_compact,
+                        tile_idx, mv, mc, tile: int, window: int) -> None:
+    check_probe_args(probe_hk, build_hk, build_val, wrow_compact, tile,
+                     window, tile_idx)
+    for name, t in (("mv", mv), ("mc", mc)):
+        if (t.dtype != torch.int32 or t.shape != probe_hk.shape
+                or not t.is_contiguous() or t.device != probe_hk.device):
+            raise ValueError(f"{name} must be a contiguous int32 tensor "
+                             "shaped and placed like the probe column")
+
+
+def merge_probe_gather_indexed_torch(probe_hk, build_hk, build_val,
+                                     wrow_compact, tile_idx, mv, mc,
+                                     tile: int, window: int):
+    """Plain version of K4: the listed tiles through merge_probe_torch,
+    their results written into (mv, mc) in place; entries outside [0,
+    tiles) are skipped.  Returns (mv, mc)."""
+    _check_indexed_args(probe_hk, build_hk, build_val, wrow_compact,
+                        tile_idx, mv, mc, tile, window)
+    n_tiles = probe_hk.shape[0] // tile
+    idx = tile_idx.long()
+    listed = (idx >= 0) & (idx < n_tiles)  # K4 skips any other entry
+    idx, wrow_compact = idx[listed], wrow_compact[listed]
+    sub = probe_hk.view(n_tiles, tile)[idx].reshape(-1)
+    smv, smc = merge_probe_torch(sub, build_hk, build_val, wrow_compact,
+                                 tile, window)
+    mv.view(n_tiles, tile)[idx] = smv.view(-1, tile)
+    mc.view(n_tiles, tile)[idx] = smc.view(-1, tile)
+    return mv, mc
+
+
+def merge_probe_gather_indexed(probe_hk, build_hk, build_val, wrow_compact,
+                               tile_idx, mv, mc, tile: int, window: int):
+    """The wide pass over a compact tile list: tile tile_idx[j] of the
+    probe column is probed at `window` from anchor row wrow_compact[j]
+    (already clamped for this width), with K3's contract, and its slots
+    of (mv, mc) are overwritten IN PLACE; every other slot keeps the
+    first pass's value.  The JAX package aliases the outputs to these
+    inputs instead; the engine passes the narrow pass's fresh outputs, so
+    nothing else sees the write.  An entry outside [0, tiles) is skipped
+    and writes nothing (the engine's list is a prefix of a permutation of
+    the tiles); an entry may repeat a tile with the same anchor.  A CUDA
+    tensor launches K4; a CPU tensor takes the plain version.  Returns
+    (mv, mc)."""
+    if probe_hk.device.type == "cpu":
+        return merge_probe_gather_indexed_torch(
+            probe_hk, build_hk, build_val, wrow_compact, tile_idx, mv, mc,
+            tile, window)
+    _check_indexed_args(probe_hk, build_hk, build_val, wrow_compact,
+                        tile_idx, mv, mc, tile, window)
+    if tile_idx.numel() == 0:
+        return mv, mc
+    _build.launch("hjk_merge_probe_gather_indexed", probe_hk.device,
+                  probe_hk, probe_hk.shape[0], build_hk, build_val,
+                  build_hk.shape[0], wrow_compact, tile_idx,
+                  tile_idx.shape[0], tile, window, mv, mc)
+    merge_probe_gather_indexed.launches += 1
+    return mv, mc
+
+
+merge_probe_gather_indexed.launches = 0

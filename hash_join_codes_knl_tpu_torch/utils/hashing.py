@@ -1,4 +1,5 @@
-"""The port's key domain and the multiplicative key scramble.
+"""The port's key domain, the multiplicative key scramble and the range
+hash.
 
 Counterpart of ``hash_join_codes_knl_tpu/utils/hashing.py``.  torch has
 no complete unsigned 32-bit type (``searchsorted``, ``max`` and ``>>``
@@ -54,6 +55,18 @@ def mul_u32(x: torch.Tensor, factor: int) -> torch.Tensor:
 def hashed_key(keys: torch.Tensor, factor: int) -> torch.Tensor:
     """uint32(key * factor): the scrambled key, as int32 bits (unbiased)."""
     return mul_u32(keys, factor)
+
+
+def range_hash(keys: torch.Tensor, factor: int, nbins: int) -> torch.Tensor:
+    """The reference's range hash, ((key * factor mod 2^32) * nbins) >>
+    32, as int64 bins in [0, nbins), for any nbins < 2^32.  nbins is
+    split into 16-bit halves so that no int64 product overflows:
+    floor((h * (n1 * 2^16 + n0)) / 2^32) == (h * n1 + ((h * n0) >> 16))
+    >> 16."""
+    if not 0 < nbins < 2**32:
+        raise ValueError(f"nbins must lie in [1, 2^32), got {nbins}")
+    h = mul_u32(keys, factor).to(torch.int64) & _MASK
+    return (h * (nbins >> 16) + ((h * (nbins & 0xFFFF)) >> 16)) >> 16
 
 
 def bias(x: torch.Tensor) -> torch.Tensor:

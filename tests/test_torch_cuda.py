@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from hash_join_codes_knl_tpu.relgen.generate import generate
-from hash_join_codes_knl_tpu_torch.engine import phj
+import dataclasses
+
+from hash_join_codes_knl_tpu_torch.engine import npj, phj
 from hash_join_codes_knl_tpu_torch.engine.config import (
     DEFAULT_FACTOR,
     JoinPlan,
@@ -27,6 +28,7 @@ from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
 from hash_join_codes_knl_tpu_torch.ops import partition as pa
 from hash_join_codes_knl_tpu_torch.ops import probe as pt
 from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+from hash_join_codes_knl_tpu_torch.relgen.generate import generate
 from hash_join_codes_knl_tpu_torch.utils.hashing import bias, u32_to_device
 from torch_cases import (
     case_boundary_and_pads,
@@ -97,6 +99,75 @@ def test_dense_kernel_unsorted_windows(cuda):
     wrow = torch.from_numpy(rng.integers(0, 30, 16).astype(np.int32)).to(cuda)
     want = mp.merge_probe_torch(o, b, v, wrow, 3072, 2560)
     assert _equal(mp.merge_probe(o, b, v, wrow, 3072, 2560), want)
+
+
+def _indexed_inputs(dev, tile, n_tiles, window, seed):
+    """A sorted M:N build side, key-sorted probe tiles and anchors from
+    the engine's own window rows, clamped for `window`."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(1, 2**32, 6000, dtype=np.uint32))[:4000]
+    bk = keys[rng.integers(0, len(keys), 40 * 128)]
+    bk[:300] = 0  # build pads
+    bv = rng.integers(0, 2**32, len(bk), dtype=np.uint32)
+    order = np.lexsort((bv, bk))
+    b, v = bias(u32_to_device(bk[order], dev)), u32_to_device(bv[order], dev)
+    ok = keys[rng.integers(0, len(keys), tile * n_tiles)]
+    ok[rng.integers(0, len(ok), len(ok) // 20)] = 0  # null probes
+    o = bias(u32_to_device(np.sort(ok), dev))
+    rows = b.shape[0] // 128
+    wrow_raw, _ = phj._window_rows(b, o, tile, rows)
+    return o, b, v, wrow_raw.clamp(0, rows - window // 128)
+
+
+@pytest.mark.parametrize("tile", [512, 3072])
+@pytest.mark.parametrize("pick", ["random", "duplicates", "edges"])
+def test_indexed_kernel_matches_plain(cuda, tile, pick):
+    """K4 against its plain version: random tile lists, repeated entries
+    and the first and last tile; unlisted slots keep their values."""
+    n_tiles, window = 24, 2560
+    o, b, v, wrow_w = _indexed_inputs(cuda, tile, n_tiles, window,
+                                      seed=tile)
+    rng = np.random.default_rng(tile + len(pick))
+    tidx = {"random": rng.permutation(n_tiles)[:9],
+            "duplicates": np.array([4, 4, 7, 4, 7, 7, 0]),
+            "edges": np.array([0, n_tiles - 1])}[pick]
+    ti = torch.from_numpy(tidx.astype(np.int32)).to(cuda)
+    wc = wrow_w[ti.long()].to(torch.int32).contiguous()
+    mv0 = torch.randint(-2**31, 2**31, o.shape, dtype=torch.int32,
+                        device=cuda)
+    mc0 = torch.randint(0, 9, o.shape, dtype=torch.int32, device=cuda)
+    want = mg.merge_probe_gather_indexed_torch(o, b, v, wc, ti, mv0.clone(),
+                                               mc0.clone(), tile, window)
+    before = mg.merge_probe_gather_indexed.launches
+    got = mg.merge_probe_gather_indexed(o, b, v, wc, ti, mv0.clone(),
+                                        mc0.clone(), tile, window)
+    assert mg.merge_probe_gather_indexed.launches == before + 1
+    assert _equal(got, want)
+    keep = torch.ones(n_tiles, dtype=torch.bool, device=cuda)
+    keep[ti.long()] = False
+    keep = keep.repeat_interleave(tile)
+    assert torch.equal(got[0][keep], mv0[keep])
+    assert int(got[1][~keep].sum()) > 0
+
+
+def test_indexed_kernel_skips_ids_outside_the_probe(cuda):
+    """K4 writes nothing for a tile id outside [0, tiles), as its plain
+    version; the slots of unlisted tiles keep their values."""
+    tile, n_tiles, window = 512, 24, 2560
+    o, b, v, wrow_w = _indexed_inputs(cuda, tile, n_tiles, window, seed=5)
+    ti = torch.tensor([n_tiles, 2, -1, 9, 1 << 30], dtype=torch.int32,
+                      device=cuda)
+    wc = wrow_w[ti.long().clamp(0, n_tiles - 1)].to(torch.int32).contiguous()
+    mv0 = torch.randint(-2**31, 2**31, o.shape, dtype=torch.int32,
+                        device=cuda)
+    mc0 = torch.full(o.shape, -1, dtype=torch.int32, device=cuda)
+    got = mg.merge_probe_gather_indexed(o, b, v, wc, ti, mv0.clone(),
+                                        mc0.clone(), tile, window)
+    want = mg.merge_probe_gather_indexed_torch(o, b, v, wc, ti, mv0.clone(),
+                                               mc0.clone(), tile, window)
+    assert _equal(got, want)
+    written = (got[1] != -1).view(n_tiles, tile).all(1)
+    assert written.nonzero().view(-1).tolist() == [2, 9]
 
 
 def _mn_build(seed=7, ni=4096, no=32768, distinct=1500):
@@ -255,3 +326,53 @@ def test_join_on_card_matches_cpu(cuda, case):
         assert after[4] == counts[4] + (4 if case == "radix" else 0)
     else:
         assert after[1] + after[2] > counts[1] + counts[2]
+
+
+def test_two_class_join_on_card_matches_cpu(cuda):
+    """The two-class plan through join() on the card (the narrow dense
+    probe, then K4) equals the CPU run slot for slot."""
+    rng = np.random.default_rng(131)
+    ik = np.unique(rng.integers(1, 2**32, 4896, dtype=np.uint32))[:4096]
+    iv = rng.integers(0, 2**32, 4096, dtype=np.uint32)
+    ok = ik[rng.integers(0, 4096, 65536)].astype(np.uint32)
+    ov = rng.integers(0, 2**32, 65536, dtype=np.uint32)
+    plan = dataclasses.replace(plan_join(4096, 65536, tile=512),
+                               probe_chunks=8, window=384, window_wide=1920,
+                               wide_cap=128)
+    before = mg.merge_probe_gather_indexed.launches
+    res_c, plan_c = phj.join(ik, iv, ok, ov, plan, device=cuda)
+    assert mg.merge_probe_gather_indexed.launches == before + 1
+    res_h, plan_h = phj.join(ik, iv, ok, ov, plan, device="cpu")
+    assert plan_c == plan_h == plan
+    got, want = result_to_numpy(res_c), result_to_numpy(res_h)
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+@pytest.mark.parametrize("order", ["input", "sorted", "chain"])
+def test_npj_join_on_card_matches_cpu(cuda, order):
+    """npj_join on the card (K2 over the parked table) equals the CPU run
+    (the plain probe), slot for slot, M:N build keys and null probes
+    included."""
+    rng = np.random.default_rng(83)
+    ik = rng.integers(1, 4000, 3000, dtype=np.uint32)
+    iv = rng.integers(0, 2**32, 3000, dtype=np.uint32)
+    ok = np.concatenate([ik[rng.integers(0, 3000, 50000)],
+                         rng.integers(1, 2**32, 20000, dtype=np.uint32)]
+                        ).astype(np.uint32)
+    ok[::97] = 0
+    ov = rng.integers(0, 2**32, len(ok), dtype=np.uint32)
+    plan = npj.plan_npj(len(ik))
+    if order == "chain":
+        plan = dataclasses.replace(plan, probe_impl="chain")
+    kw = dict(order="input" if order == "chain" else order)
+    before = mp.merge_probe.launches
+    got = npj.npj_join(ik, iv, ok, ov, plan, **kw)  # the card by default
+    launched = mp.merge_probe.launches - before
+    want = npj.npj_join(ik, iv, ok, ov, plan, device="cpu", **kw)
+    assert launched == (0 if order == "chain" else 1)
+    assert got[-1] == want[-1]
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    assert int(got[-2].max()) > 1

@@ -107,7 +107,8 @@ def _interpret_kernels(monkeypatch):
     on-TPU resolution; returns the per-kernel call counts."""
     calls = {}
     for mod, name in ((jcl, "flat_to_rows"), (jmp, "merge_probe_pallas"),
-                      (jmg, "merge_probe_gather")):
+                      (jmg, "merge_probe_gather"),
+                      (jmg, "merge_probe_gather_indexed")):
         def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
             calls[_name] = calls.get(_name, 0) + 1
             return _fn(*a, interpret=True, **kw)
@@ -229,13 +230,145 @@ def test_join_accepts_tensors_and_refuses_bad_inputs():
     cols = [u32_to_device(c, "cpu") for c in (ik, iv, ok, ov)]
     res, _ = tphj.join(*cols)
     assert int(res.join_tuples) == 8192
-    with pytest.raises(ValueError, match="device"):
-        tphj.join(ik, iv, ok, ov)  # numpy without device=
+    # numpy columns without device= go to the card, and raise without one
+    if torch.cuda.is_available():
+        res, _ = tphj.join(ik, iv, ok, ov)
+        assert res.match_cnts.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tphj.join(ik, iv, ok, ov)
     with pytest.raises(ValueError):
         tphj.join(cols[0].to(torch.int64), *cols[1:])
-    with pytest.raises(NotImplementedError, match="window_wide"):
+    # a two-class plan runs; its wide window must fit the build side
+    with pytest.raises(ValueError, match="wider than the build side"):
         tphj.join(*cols, dataclasses.replace(plan_join(1024, 8192),
                                              window=1280, window_wide=4096))
+
+
+# ---- the two-class window geometry ----------------------------------------
+
+
+def _mk_skewish(seed=131, ni=4096, no=65536):
+    """tests/test_phj.py's two-class workload: tile spans straddle the
+    narrow window, so both classes are populated."""
+    rng = np.random.default_rng(seed)
+    ik = np.unique(rng.integers(1, 2**32, ni + 800, dtype=np.uint32))[:ni]
+    iv = rng.integers(0, 2**32, ni, dtype=np.uint32)
+    ok = ik[rng.integers(0, ni, no)].astype(np.uint32)
+    ov = rng.integers(0, 2**32, no, dtype=np.uint32)
+    return ik, iv, ok, ov
+
+
+def _two_class_plan(window=384, window_wide=1920, wide_cap=128, **kw):
+    return dataclasses.replace(plan_join(4096, 65536, tile=512),
+                               probe_chunks=8, window=window,
+                               window_wide=window_wide, wide_cap=wide_cap,
+                               **kw)
+
+
+def test_two_class_matches_jax_kernels(monkeypatch):
+    """The port's two passes (the narrow dense probe, then K4 over the
+    wide tiles; plain versions here) against the JAX package's Pallas
+    kernels in interpret mode under its on-TPU resolution."""
+    cols = _mk_skewish()
+    plan = _two_class_plan()
+    calls = _interpret_kernels(monkeypatch)
+    jax.clear_caches()
+    try:
+        got, final = _compare(*cols, plan)
+    finally:
+        jax.clear_caches()
+    assert calls == {"flat_to_rows": 2, "merge_probe_pallas": 1,
+                     "merge_probe_gather_indexed": 1}
+    assert final == plan  # no re-plan: both classes fit
+    # the wide class is populated, and the narrow window alone misses
+    t = {f: u32_to_device(c, "cpu") for f, c in zip("abcd", cols)}
+    tile, window, rows, cap = tphj._merge_params(plan, 4096, 65536)
+    bhk, _ = tphj._merge_sort_side(t["a"], t["b"], rows * 128, plan.factor)
+    ohk, _ = tphj._merge_sort_probe(t["c"], t["d"], cap, 8, plan.factor)
+    _, stats, (tidx, _, wide_ovf) = tphj._merge_windows(
+        bhk, ohk, tile, window, rows, plan.window_wide, plan.wide_cap)
+    _, narrow = tphj._merge_windows(bhk, ohk, tile, window, rows)
+    assert int(wide_ovf) == 0 and int(stats[0]) == 0
+    assert int(narrow[0]) > 4 and len(np.unique(tidx.numpy())) == 128
+
+
+def test_two_class_matches_jax_jnp_path():
+    """merge_jnp: one plain pass at the wide width in both packages."""
+    got, final = _compare(*_mk_skewish(seed=133),
+                          _two_class_plan(probe_impl="merge_jnp"))
+    assert final.window_wide == 1920
+
+
+def test_two_class_windows_match_jax():
+    """_merge_windows' two-class values, including the class order of the
+    tile list and a list longer than the tile count."""
+    ik, iv, ok, ov = _mk_skewish(seed=135)
+    plan = _two_class_plan()
+    tile, window, rows, cap = tphj._merge_params(plan, 4096, 65536)
+    bhk, _ = tphj._merge_sort_side(u32_to_device(ik, "cpu"),
+                                   u32_to_device(iv, "cpu"), rows * 128,
+                                   plan.factor)
+    ohk, _ = tphj._merge_sort_probe(u32_to_device(ok, "cpu"),
+                                    u32_to_device(ov, "cpu"), cap, 8,
+                                    plan.factor)
+    bhk_j = (bhk ^ tphj.BIAS).numpy().view(np.uint32)
+    ohk_j = (ohk ^ tphj.BIAS).numpy().view(np.uint32).reshape(8, -1)
+    for wide_cap in (16, 128, 1000):  # 128 tiles: 1000 takes them all
+        got = tphj._merge_windows(bhk, ohk, tile, window, rows, 1920,
+                                  wide_cap)
+        want = jphj._merge_windows(jax.numpy.asarray(bhk_j),
+                                   jax.numpy.asarray(ohk_j), tile, window,
+                                   rows, window_wide=1920,
+                                   wide_cap=wide_cap)
+        for g, w in ((got[0], want[0]), (got[1], want[1]),
+                     *zip(got[2], want[2])):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert len(got[2][0]) == cap // tile
+
+
+def test_two_class_wide_cap_downgrade_like_jax():
+    """More wide tiles than wide_cap: both packages downgrade to one
+    class at window_wide (tests/test_phj.py's expectation)."""
+    _, final = _compare(*_mk_skewish(seed=137), _two_class_plan(wide_cap=2))
+    assert final.window_wide == 0 and final.window == 1920
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(window=0), "explicit narrow"),
+    (dict(window=1920, window_wide=1920), "explicit narrow"),
+    (dict(window_wide=40_000), "gather"),
+])
+def test_two_class_plan_refusals_like_jax(kw, match):
+    plan = _two_class_plan(**kw)
+    with pytest.raises(ValueError, match=match):
+        jphj._merge_params(_jax_plan(plan), 4096, 65536)
+    with pytest.raises(ValueError, match=match):
+        tphj._merge_params(plan, 4096, 65536)
+
+
+def test_two_class_wide_past_build_side_refused_like_jax(monkeypatch):
+    """A build side narrower than the wide window: the JAX package's
+    window slice cannot exceed the build side, on its jnp path and on its
+    kernels, so it refuses; the port refuses too."""
+    rng = np.random.default_rng(139)
+    ik = np.unique(rng.integers(1, 2**32, 300, dtype=np.uint32))[:200]
+    iv = rng.integers(0, 2**32, 200, dtype=np.uint32)
+    ok = ik[rng.integers(0, 200, 4096)]
+    plan = dataclasses.replace(plan_join(200, 4096, tile=512), window=384,
+                               window_wide=1920, wide_cap=8)
+    assert tphj._merge_params(plan, 200, 4096)[2] * 128 < 1920
+    with pytest.raises(TypeError, match="slice"):
+        jphj.join(ik, iv, ok, ok, plan=_jax_plan(plan))
+    _interpret_kernels(monkeypatch)
+    jax.clear_caches()
+    try:
+        with pytest.raises(TypeError, match="slice"):
+            jphj.join(ik, iv, ok, ok, plan=_jax_plan(plan))
+    finally:
+        jax.clear_caches()
+    with pytest.raises(ValueError, match="wider than the build side"):
+        tphj.join(ik, iv, ok, ok, plan, device="cpu")
 
 
 def test_materialize_refuses_multi_match():

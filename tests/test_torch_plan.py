@@ -134,12 +134,16 @@ def test_plan_from_jax_round_trips(plan):
 
 
 def test_unported_modes_raise():
-    """Only the two-class window geometry is left unported; the padded
-    modes run."""
+    """Nothing is left unported: a two-class plan's geometry equals the
+    JAX package's, and the padded modes run."""
     plan = plan_join(4096, 65536)
-    two_class = dataclasses.replace(plan, window=1280, window_wide=4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tphj._merge_params(two_class, 4096, 65536)
+    for window, wide, impl in ((1280, 4096, "merge"), (384, 1920, "merge"),
+                               (2048, 15104, "merge_gather"),
+                               (640, 3072, "merge_jnp")):
+        two_class = dataclasses.replace(plan, window=window,
+                                        window_wide=wide, probe_impl=impl)
+        assert tphj._merge_params(two_class, 4096, 65536) == \
+            jphj._merge_params(JaxPlan(**_fields(two_class)), 4096, 65536)
     rng = np.random.default_rng(2)
     cols = [torch.from_numpy(rng.integers(1, 2**31, n).astype(np.int32))
             for n in (512, 512, 2048, 2048)]
@@ -148,3 +152,29 @@ def test_unported_modes_raise():
             plan_join(512, 2048), probe_impl=impl))
         assert res.build_counts.shape == (plan_join(512, 2048)
                                           .num_partitions,)
+
+
+def _two_class_plans():
+    base = plan_join(16_000_000, 256_000_000)
+    return [dataclasses.replace(base, window=2048, window_wide=15104,
+                                wide_cap=1024),
+            dataclasses.replace(plan_join(4096, 65536, tile=512),
+                                probe_chunks=8, window=384, window_wide=1920,
+                                wide_cap=128, unique_build=True)]
+
+
+def test_downgrade_plan_opts_two_class_matches():
+    for plan in _two_class_plans():
+        got = tphj.downgrade_plan_opts(plan)
+        want = jphj.downgrade_plan_opts(JaxPlan(**_fields(plan)))
+        assert _fields(got) == _fields(want)
+        assert got.window_wide == 0 and got.window == plan.window_wide
+
+
+@pytest.mark.parametrize("span", [300, 2000, 15_500, 40_000, 3_000_000])
+def test_replan_from_span_two_class_matches(span):
+    for plan in _two_class_plans():
+        got = tphj.replan_from_span(plan, span)
+        want = jphj.replan_from_span(JaxPlan(**_fields(plan)), span)
+        assert _fields(got) == _fields(want)
+        assert got.window_wide == 0

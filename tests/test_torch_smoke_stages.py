@@ -1,6 +1,9 @@
-"""chip_smoke.py's padded stage breakdown runs _phj_join_padded's steps
-one by one; here, on the CPU, its result must equal the engine's."""
+"""chip_smoke.py's helpers on the CPU: the padded stage breakdown runs
+_phj_join_padded's steps one by one, and its results must equal the
+engine's; the two-class plan's set-up leaves the launch counts as they
+were; the trace's interval union and the binary-search probe's bound."""
 
+import dataclasses
 import importlib.util
 import os
 
@@ -9,7 +12,12 @@ import pytest
 import torch
 
 from hash_join_codes_knl_tpu_torch.engine import phj as tphj
-from hash_join_codes_knl_tpu_torch.engine.config import JoinPlan
+from hash_join_codes_knl_tpu_torch.engine.config import (
+    DEFAULT_FACTOR,
+    JoinPlan,
+    plan_join,
+)
+from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
 from hash_join_codes_knl_tpu_torch.utils.hashing import u32_to_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,3 +53,81 @@ def test_padded_stages_equal_the_engine(plan):
     for f in smoke.RESULT_COLUMNS:
         assert torch.equal(st[f], getattr(res, f)), f
     assert st["join_tuples"] == int(res.join_tuples) > 0
+
+
+def _skewed_columns():
+    """30 hot keys from the first half of the (scrambled) build order, a
+    1024-key spread over the second half: hot tiles span one row, the
+    spread's tiles half the build side."""
+    rng = np.random.default_rng(5)
+    n = 8192
+    ik = np.unique(rng.integers(1, 2**32, n + 2000, dtype=np.uint32))[:n]
+    iv = rng.integers(0, 2**32, n, dtype=np.uint32)
+    hk = tphj.flat_to_rows(u32_to_device(ik, "cpu"),
+                           u32_to_device(iv, "cpu"), n, 1,
+                           DEFAULT_FACTOR)[0]
+    by_rank = ik[torch.argsort(hk.reshape(-1)).numpy()]
+    hot = by_rank[rng.choice(n // 2, 30, replace=False)]
+    ok = np.concatenate([np.repeat(hot, 1024),
+                         rng.choice(by_rank[n // 2:], 1024, replace=False)])
+    rng.shuffle(ok)
+    ov = rng.integers(0, 2**32, ok.size, dtype=np.uint32)
+    return [u32_to_device(c, "cpu") for c in (ik, iv, ok, ov)]
+
+
+def test_two_class_plan_puts_the_launch_counts_back(monkeypatch):
+    """The two-class plan's set-up sorts launch K1 on the card; the
+    path's launch counts must not see them.  Its wide count is
+    _merge_windows' at the narrow window, and join() takes the plan as
+    it is, with the single-class plan's cardinality."""
+    smoke = _chip_smoke()
+    cols = _skewed_columns()
+    plan = dataclasses.replace(plan_join(8192, 31744, tile=512),
+                               probe_chunks=1)
+    res, plan = tphj.join(*cols, plan, device="cpu")
+    real = tphj.flat_to_rows
+    seen = []
+
+    def counted(*a):  # what the kernel's wrapper does on the card
+        cl.flat_to_rows.launches += 1
+        seen.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(tphj, "flat_to_rows", counted)
+    before = smoke._launches()
+    two, qs, n_wide = smoke._two_class_plan(cols, plan)
+    assert seen and smoke._launches() == before
+    monkeypatch.setattr(tphj, "flat_to_rows", real)
+    assert qs[1] < qs[2] and two.window < two.window_wide == plan.window
+    tile, _, rows, cap = tphj._merge_params(plan, 8192, 31744)
+    bhk, _ = tphj._merge_sort_side(cols[0], cols[1], rows * 128,
+                                   plan.factor)
+    ohk, _ = tphj._merge_sort_probe(cols[2], cols[3], cap, 1, plan.factor)
+    wide_ovf = tphj._merge_windows(bhk, ohk, tile, two.window, rows,
+                                   two.window_wide, 0)[2][2]
+    assert int(wide_ovf) == n_wide > 0
+    res2, final = tphj.join(*cols, two)
+    assert final == two
+    assert int(res2.join_tuples) == int(res.join_tuples) == 31744
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0, 4), (1, 2), (3, 6)], 6.0),
+    ([(5, 7), (0, 1), (1, 2), (6, 9)], 6.0),
+], ids=["empty", "nested", "touching"])
+def test_union_of_intervals(intervals, want):
+    assert _chip_smoke()._union_us(intervals) == want
+
+
+def test_search_bound_reads_the_union_of_windows():
+    """Windows [0, 256), [0, 256), [128, 384), [1280, 1536): 640 keys,
+    each read once; one value per matched probe."""
+    smoke = _chip_smoke()
+    probe = torch.tensor([-2**31, 5, 6, 7] * 64, dtype=torch.int32)
+    wrow = torch.tensor([0, 0, 1, 10], dtype=torch.int32)
+    mc = torch.tensor([0, 1, 2, 0] * 64, dtype=torch.int32)
+    got = smoke._search_bound(probe, wrow, 256, 4096, mc)
+    nbytes = 12 * 256 + 4 * 4 + 4 * 640 + 4 * 128
+    assert got == smoke._bound(nbytes, 2 * 192 * 8)
+    assert got["bound_by"] == "bytes"
