@@ -18,11 +18,13 @@ naming the device; the line before it lists every kernel with its
 launch count in the path runs, its largest difference from the plain
 version, its time, the plain version's, and its bound: the larger of
 its bytes over 3.35 TB/s and its operations over the 32-bit integer rate
-INT32_OPS_PER_S (one H100 SXM's published peaks).
+INT32_OPS_PER_S (one H100 SXM's published peaks).  The radix pass is also
+run once under torch.profiler and split into its kernels.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -100,6 +102,14 @@ def _print(*a):
     print(*a, flush=True)
 
 
+_T0 = time.perf_counter()
+
+
+def _stamp(done: str) -> None:
+    """Wall-clock seconds since the script started, after a phase."""
+    _print(f"elapsed: {time.perf_counter() - _T0:.1f} s after {done}")
+
+
 def _median_ms(fn, reps: int) -> float:
     """Median device time of fn() in ms, from CUDA events, after one
     warm-up call."""
@@ -123,7 +133,8 @@ def _max_abs_err(got, want) -> int:
 
 
 def _check_equal(name, got, want):
-    torch.cuda.synchronize()
+    if got[0].is_cuda:
+        torch.cuda.synchronize()
     for g, w in zip(got, want):
         if g.shape != w.shape or not torch.equal(g, w):
             raise AssertionError(f"{name}: kernel differs from its plain "
@@ -151,6 +162,37 @@ def _generate(ni, no, **kw):
     t0 = time.perf_counter()
     inner, outer, _ = generate(inner_tuples=ni, outer_tuples=no, **kw)
     return (inner, outer), time.perf_counter() - t0
+
+
+def _oracle_digest(data):
+    """join_oracle's digest of a relation pair (numpy, host only)."""
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+
+    inner, outer = data
+    return multiset_digest(*join_oracle(inner.keys, inner.vals, outer.keys,
+                                        outer.vals))
+
+
+def _start_oracles(data_1m) -> dict:
+    """The digest cases: name -> (relation pair, a future of its oracle
+    digest).  The relations are generated here; their digests are
+    computed on two host threads (numpy releases the interpreter lock)
+    while the caller joins the same relations on the card and digests
+    the results.  The threads end with their work; a failure there is
+    raised where the result is read."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    cases = {"small": (data_1m, pool.submit(_oracle_digest, data_1m))}
+    for name, shape, kw in (
+            ("uniform_4m", HEADLINE_4M, dict(seed=42, mode="uniform")),
+            ("zipf_4m", HEADLINE_4M, dict(seed=43, mode="zipf", zipf=1.0)),
+            ("radix_4m", RADIX_4M, dict(seed=44, mode="uniform"))):
+        data, _ = _generate(*shape, **kw)
+        cases[name] = (data, pool.submit(_oracle_digest, data))
+    pool.shutdown(wait=False)  # the submitted work still runs to its end
+    return cases
 
 
 def _stages(cols, plan):
@@ -273,24 +315,49 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
 
 def _spread_tiles(pk, tpid, tile: int, count: int):
     """`count` tiles spread over the layout, in order (so their tile_pid
-    stays non-decreasing), as a contiguous probe column."""
+    stays non-decreasing), as a contiguous probe column; and their ids."""
     n_tiles = tpid.shape[0]
     sel = torch.linspace(0, n_tiles - 1, count, device=pk.device).long()
     return (pk.view(n_tiles, tile)[sel].reshape(-1).contiguous(),
-            tpid[sel].contiguous())
+            tpid[sel].contiguous(), sel)
+
+
+def _check_full_probe(name, full, sel, want):
+    """The kernel over a whole layout (a block per partition's tiles)
+    agrees, on the spread tiles, with the run that was held against the
+    plain version."""
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+
+    got = pt.probe_tiles(*full)
+    tile = full[4]
+    _check_equal(name, [o.view(-1, tile)[sel].reshape(-1) for o in got],
+                 want)
+
+
+def _full_rows(tk, pk_s, tp_s, tile: int):
+    """A copy of the table whose rows under the spread tiles have every
+    slot live: a null slot takes a probe key of the row's tile (so build
+    keys repeat, M:N) or, where that is null too, a key of its own.  A
+    9216-slot row then holds more live slots than one round of the
+    kernel's table."""
+    slots = tk.shape[1]
+    rows = tp_s.long()
+    col = torch.arange(slots, device=tk.device)
+    fill = pk_s.view(-1, tile)[:, col % tile]
+    own = (rows[:, None] * slots + col[None, :] + 1).to(torch.int32)
+    fill = torch.where(fill != -2**31, fill, own)
+    out = tk.clone()
+    out[rows] = torch.where(tk[rows] != -2**31, tk[rows], fill)
+    return out
 
 
 def _tile_probe_bound(pk, tk, tpid, tile: int) -> dict:
-    """Bound of the tile probe over the probe column pk: each live probe
-    against the live slots of its partition's row; probes, tile ids and
-    the rows used read once, both outputs written."""
-    n_tiles = tpid.shape[0]
-    live_probes = (pk.view(n_tiles, tile) != -2**31).sum(1)
-    live_slots = (tk != -2**31).sum(1)
+    """Bound of the tile probe over the probe column pk: probes and tile
+    ids read once, the rows used read once (keys and values), both
+    outputs written once; one table lookup per live probe."""
     rows_used = int(torch.unique(tpid).numel())
-    return _bound(12 * pk.shape[0] + 4 * n_tiles
-                  + 8 * tk.shape[1] * rows_used,
-                  int((live_probes * live_slots[tpid.long()]).sum()))
+    return _bound(12 * pk.shape[0] + 4 * tpid.shape[0]
+                  + 8 * tk.shape[1] * rows_used, _live(pk))
 
 
 def _kernel_probe_tiles(dev, cols_h) -> dict:
@@ -314,7 +381,7 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
     plan = _sort_plan(*HEADLINE)
     lay = _padded_stages(*cols_h, plan)
     tile = plan.tile
-    pk_s, tp_s = _spread_tiles(lay["pk"], lay["tpid"], tile, 256)
+    pk_s, tp_s, sel = _spread_tiles(lay["pk"], lay["tpid"], tile, 256)
     sub = (pk_s, lay["tk"], lay["tv"], tp_s, tile)
     got, want = pt.probe_tiles(*sub), pt.probe_tiles_torch(*sub)
     _check_equal("probe_tiles sort-mode headline, 256 tiles", got, want)
@@ -323,6 +390,8 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
     plain_ms = _median_ms(lambda: pt.probe_tiles_torch(*sub), 3)
     bound = _tile_probe_bound(pk_s, lay["tk"], tp_s, tile)
     full = (lay["pk"], lay["tk"], lay["tv"], lay["tpid"], tile)
+    _check_full_probe("probe_tiles sort-mode headline, all tiles", full, sel,
+                      want)
     bound_sort = _tile_probe_bound(lay["pk"], lay["tk"], lay["tpid"],
                                    tile)["bound_ms"]
     n_sort = lay["tpid"].shape[0]
@@ -333,11 +402,26 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
     lay = _padded_stages(*cols_h, _radix_4096_plan())
     if int(lay["build_counts"][-1]):
         raise AssertionError("radix layout overflowed in phase kernels")
-    pk_s, tp_s = _spread_tiles(lay["pk"], lay["tpid"], 128, 256)
+    pk_s, tp_s, sel = _spread_tiles(lay["pk"], lay["tpid"], 128, 256)
     sub = (pk_s, lay["tk"], lay["tv"], tp_s, 128)
+    want = pt.probe_tiles_torch(*sub)
     _check_equal("probe_tiles radix-4096 headline, 256 tiles",
-                 pt.probe_tiles(*sub), pt.probe_tiles_torch(*sub))
+                 pt.probe_tiles(*sub), want)
     full = (lay["pk"], lay["tk"], lay["tv"], lay["tpid"], 128)
+    _check_full_probe("probe_tiles radix-4096 headline, all tiles", full,
+                      sel, want)
+    # the same tiles against rows with every slot live: two rounds a row
+    dense = (pk_s, _full_rows(lay["tk"], pk_s, tp_s, 128), lay["tv"], tp_s,
+             128)
+    want = pt.probe_tiles_torch(*dense)
+    if int(want[1].max()) < 2:
+        raise AssertionError("the full rows repeat no build key")
+    _check_equal("probe_tiles radix-4096 rows with every slot live, 256 "
+                 "tiles", pt.probe_tiles(*dense), want)
+    _check_full_probe("probe_tiles radix-4096 rows with every slot live, "
+                      "all tiles", (lay["pk"], dense[1], lay["tv"],
+                                    lay["tpid"], 128), sel, want)
+    del dense, want
     n_radix = lay["tpid"].shape[0]
     slots_radix = lay["tk"].shape[1]
     ms_radix = _median_ms(lambda: pt.probe_tiles(*full), 3)
@@ -347,7 +431,9 @@ def _kernel_probe_tiles(dev, cols_h) -> dict:
     _print(f"phase kernels: probe_tiles equal to plain on a small layout and "
            f"on 256 spread tiles of the 16M x 256M sort-mode (tile {tile}, "
            f"{n_sort} tiles, slots {plan.slots}) and radix-4096 (tile 128, "
-           f"{n_radix} tiles, slots {slots_radix}) layouts; kernel "
+           f"{n_radix} tiles, slots {slots_radix}) layouts, the radix one "
+           f"also with every row slot live (two table rounds a row), alone "
+           f"and inside the run over all tiles; kernel "
            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (256 sort-mode tiles); "
            f"kernel {ms_sort:.4f} ms on all sort-mode tiles, "
            f"{ms_radix:.4f} ms on all radix tiles")
@@ -378,6 +464,7 @@ def _kernel_radix_partition(cols_h) -> dict:
     del want
     ms = _median_ms(lambda: rp.radix_partition(*args), 10)
     plain_ms = _median_ms(lambda: rp.radix_partition_torch(*args), 3)
+    split = radix_trace(args, f"pass 1 ({HEADLINE[1]} rows, F=64)")
     # keys and values read, the regions (keys and values) written
     bound = _bound(8 * hk.shape[0] + 8 * got[0].shape[0])
     del hk, v
@@ -389,6 +476,7 @@ def _kernel_radix_partition(cols_h) -> dict:
         raise AssertionError("radix pass 2 overflowed")
     del want2
     ms2 = _median_ms(lambda: rp.radix_partition(*args2), 5)
+    split2 = radix_trace(args2, "pass-2 batch (64 regions, F=64)")
     n1, n2 = got[0].shape[0], got2[0].shape[0]
     _print(f"phase kernels: radix_partition equal to plain on pass 1 "
            f"({HEADLINE[1]} rows -> 64 regions, {n1} slots) and on the "
@@ -397,6 +485,8 @@ def _kernel_radix_partition(cols_h) -> dict:
            f"(pass 1); kernel {ms2:.4f} ms (pass 2 batch)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_pass2=ms2,
                 bound_ms_pass2=_bound(8 * n1 + 8 * n2)["bound_ms"],
+                split_ms={k: round(x, 4) for k, x in split.items()},
+                split_ms_pass2={k: round(x, 4) for k, x in split2.items()},
                 **bound, shape=f"pass 1 of (6, 6): n={HEADLINE[1]} F=64")
 
 
@@ -441,15 +531,12 @@ def _oracle_count(ik: np.ndarray, ok: np.ndarray) -> int:
     return int((per * reps).sum())
 
 
-def _join_vs_oracle(label, data, dev, want_kernels, plan=None,
-                    want=None):
-    from hash_join_codes_knl_tpu_torch.engine.oracle import (
-        join_oracle,
-        multiset_digest,
-    )
+def _join_vs_oracle(label, data, dev, want_kernels, want, plan=None):
+    """join() on the card against `want`, the oracle's digest of the
+    same relations or a future of it; returns the final plan."""
+    from hash_join_codes_knl_tpu_torch.engine.oracle import multiset_digest
     from hash_join_codes_knl_tpu_torch.engine.phj import join, materialize
 
-    inner, outer = data
     before = _launches()
     res, plan = join(*_device_cols(data, dev), plan)
     d = _delta(before)
@@ -458,9 +545,8 @@ def _join_vs_oracle(label, data, dev, want_kernels, plan=None,
         if d[k] == 0:
             raise AssertionError(f"{label}: {k} was not launched ({d})")
     got = multiset_digest(*materialize(res))
-    if want is None:
-        want = multiset_digest(*join_oracle(inner.keys, inner.vals,
-                                            outer.keys, outer.vals))
+    if isinstance(want, concurrent.futures.Future):
+        want = want.result()  # computed beside the join, read after it
     if got != want:
         raise AssertionError(f"{label}: digest {got} != oracle {want}")
     replans = f"re-plans {attempts - 1}; " if attempts else ""
@@ -469,21 +555,23 @@ def _join_vs_oracle(label, data, dev, want_kernels, plan=None,
     return plan
 
 
-def phase_joins(dev, data_1m):
+def phase_joins(dev, oracles):
     from hash_join_codes_knl_tpu_torch.engine.phj import join
 
-    _join_vs_oracle("uniform 1M x 8M", data_1m, dev, ["merge_probe"])
-    data_4m, _ = _generate(*HEADLINE_4M, seed=42, mode="uniform")
+    data_1m, want = oracles["small"]
+    _join_vs_oracle("uniform 1M x 8M", data_1m, dev, ["merge_probe"], want)
+    data_4m, want = oracles.pop("uniform_4m")
     _join_vs_oracle("uniform 4M x 64M", data_4m, dev,
-                    ["flat_to_rows", "merge_probe_gather"])
+                    ["flat_to_rows", "merge_probe_gather"], want)
     del data_4m
-    zipf, _ = _generate(*HEADLINE_4M, seed=43, mode="zipf", zipf=1.0)
-    plan = _join_vs_oracle("zipf 1.0 4M x 64M", zipf, dev, [])
+    # one oracle digest serves both plans on the Zipf columns
+    zipf, want = oracles.pop("zipf_4m")
+    plan = _join_vs_oracle("zipf 1.0 4M x 64M", zipf, dev, [], want)
     two, qs, n_wide = _two_class_plan(_device_cols(zipf, dev), plan)
     final = _join_vs_oracle(
         f"zipf 1.0 4M x 64M two-class (tile spans p50/p90/p99/max {qs}, "
         f"{n_wide} wide tiles)", zipf, dev, ["merge_probe_gather_indexed"],
-        two)
+        want, two)
     if final != two:
         raise AssertionError(f"4M two-class join re-planned to {final}")
     del zipf
@@ -735,16 +823,12 @@ def _kernel_indexed(dev, cols, two, n_wide) -> dict:
                 shape=f"256 entries of {n}, tile={tile} window={wide}")
 
 
-def phase_padded_joins(dev, data_1m) -> None:
+def phase_padded_joins(dev, oracles) -> None:
     """Digests of the padded path against the oracle: the three padded
     plans of the TPU engine's hardware battery on its 262144 x 3.5M
     relation, 1M x 8M in sort mode, and 4M x 16M in the 4096-way radix
     mode (the phj_radix_4096way bench row's relation and plan)."""
     from hash_join_codes_knl_tpu_torch.engine.config import JoinPlan
-    from hash_join_codes_knl_tpu_torch.engine.oracle import (
-        join_oracle,
-        multiset_digest,
-    )
 
     draws, n_build, n_hits, n_miss = BATTERY
     rng = np.random.default_rng(3)
@@ -757,7 +841,7 @@ def phase_padded_joins(dev, data_1m) -> None:
     ov = rng.integers(0, 2**32, len(ok), dtype=np.uint32)
     data = (SimpleNamespace(keys=ik, vals=iv),
             SimpleNamespace(keys=ok, vals=ov))
-    want = multiset_digest(*join_oracle(ik, iv, ok, ov))
+    want = _oracle_digest(data)
     for label, plan, kernels in [
         ("padded pallas", JoinPlan(p_bits=10, slots=1024, tile=2048,
                                    pass_bits=(10,), probe_impl="pallas"),
@@ -770,13 +854,15 @@ def phase_padded_joins(dev, data_1m) -> None:
          ["probe_tiles", "radix_partition"]),
     ]:
         _join_vs_oracle(f"{label} {len(ik)} x {len(ok)}", data, dev,
-                        kernels, plan, want)
+                        kernels, want, plan)
+    data_1m, want = oracles["small"]
     _join_vs_oracle(f"sort mode {SMALL[0]} x {SMALL[1]}", data_1m, dev,
-                    ["flat_to_rows", "probe_tiles"], _sort_plan(*SMALL))
-    data_r, _ = _generate(*RADIX_4M, seed=44, mode="uniform")
+                    ["flat_to_rows", "probe_tiles"], want,
+                    _sort_plan(*SMALL))
+    data_r, want = oracles.pop("radix_4m")
     _join_vs_oracle(f"radix 4096-way {RADIX_4M[0]} x {RADIX_4M[1]}", data_r,
-                    dev,
-                    ["probe_tiles", "radix_partition"], _radix_4096_plan())
+                    dev, ["probe_tiles", "radix_partition"], want,
+                    _radix_4096_plan())
 
 
 def _padded_stages(ik, iv, ok, ov, plan, ev=None) -> dict:
@@ -869,20 +955,16 @@ def padded_stage_breakdown(cols, label, plan) -> None:
            f"{stages}")
 
 
-def _npj_digests(label, data, dev) -> None:
+def _npj_digests(label, data, dev, want) -> None:
     """npj_join in both output orders and the chain walk, each held to
-    join_oracle's digest (unique build keys: at most one match)."""
+    `want`, join_oracle's digest (unique build keys: at most one
+    match)."""
     from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
-    from hash_join_codes_knl_tpu_torch.engine.oracle import (
-        join_oracle,
-        multiset_digest,
-    )
+    from hash_join_codes_knl_tpu_torch.engine.oracle import multiset_digest
     from hash_join_codes_knl_tpu_torch.utils.hashing import to_numpy_u32
 
-    inner, outer = data
+    _, outer = data
     cols = _device_cols(data, dev)
-    want = multiset_digest(*join_oracle(inner.keys, inner.vals, outer.keys,
-                                        outer.vals))
     before = _launches()
     mv, mc, plan = npj_join(*cols)
     k_s, v_s, mv2, mc2, plan2 = npj_join(*cols, order="sorted")
@@ -947,26 +1029,70 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _device_intervals(fn) -> list:
+    """(kernel name, start us, end us) of every device interval of one
+    fn() under torch.profiler, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    # now and then torch.profiler comes back with no device events at
+    # all; the call is traced once more then, and an empty trace fails
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ks:
+            return ks
+        _print("the profiler returned no device intervals; tracing again")
+    raise AssertionError("the profiler returned no device intervals twice")
+
+
+RADIX_SPLIT = (("histogram", "radix_histogram_kernel"),
+               ("scatter", "radix_scatter_kernel"),
+               ("prefill", "FillFunctor"))
+
+
+def radix_trace(args, label) -> dict:
+    """One radix_partition(*args) under torch.profiler, its device time
+    split into the histogram kernel, the scatter kernel, the torch fills
+    of the outputs and the remaining torch kernels (the destination scan
+    of _destinations).  Runs outside the counted path runs."""
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+
+    ks = _device_intervals(lambda: rp.radix_partition(*args))
+    split = dict.fromkeys([k for k, _ in RADIX_SPLIT] + ["destinations"], 0.0)
+    calls = dict.fromkeys(split, 0)
+    for name, a, b in ks:
+        part = next((k for k, tag in RADIX_SPLIT if tag in name),
+                    "destinations")
+        split[part] += (b - a) / 1e3
+        calls[part] += 1
+    if not split["histogram"] or not split["scatter"]:
+        raise AssertionError(f"radix trace {label}: a kernel is missing from "
+                             f"the trace: {split}")
+    span = max(b for _, _, b in ks) - min(a for _, a, _ in ks)
+    _print(f"phase kernels: radix_partition {label} traced: {len(ks)} device "
+           f"intervals over {span / 1e3:.4f} ms; device ms "
+           f"{ {k: round(v, 4) for k, v in split.items()} }; kernels "
+           f"{calls}")
+    return split
+
+
 def npj_trace(cols, label, plan) -> dict:
     """One input-order npj_join at its final plan under torch.profiler:
     device ms by kernel name (summed intervals, largest first), the
     device's busy share between the call's first and last kernel, and
     K2's time and bound at this shape.  Runs outside the counted path
     runs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
 
     torch.cuda.empty_cache()
-    npj_join(*cols, plan)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        npj_join(*cols, plan)
-        torch.cuda.synchronize()
-    ks = [(e.name, e.time_range.start, e.time_range.end)
-          for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ks = _device_intervals(lambda: npj_join(*cols, plan))
     by_name = {}
     for name, a, b in ks:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
@@ -1046,7 +1172,9 @@ def main() -> None:
     cols_h = _device_cols(data_h, dev)
     del data_h
     data_1m, _ = _generate(*SMALL, seed=41, mode="uniform")
+    _stamp("the build and the generation of 16M x 256M and 1M x 8M")
     stats = phase_kernels(dev, _device_cols(data_1m, dev), cols_h)
+    _stamp("the kernel checks")
     torch.cuda.empty_cache()
     _stage_breakdown(cols_h, plan_join(*HEADLINE))  # warm-up
     _print(f"phase kernels: headline stage ms "
@@ -1059,33 +1187,47 @@ def main() -> None:
     # counts back); the kernel checks, stage breakdowns and the trace that
     # need a path's plan run after the read
     _set_launches()
-    phase_joins(dev, data_1m)
+    # no timed phase runs beside the host threads: those before this
+    # line are over, and the next one starts when the threads are done
+    oracles = _start_oracles(data_1m)
+    phase_joins(dev, oracles)
+    concurrent.futures.wait([digest for _, digest in oracles.values()])
+    _stamp("the merge path's digests")
     phase_headline(dev, cols_h, gen_s)
+    _stamp("the merge headline")
     torch.cuda.empty_cache()
     cols_z, plan_z, want_z = phase_zipf_headline(dev)
+    _stamp("the Zipf headline")
     two, n_wide = phase_two_class(dev, cols_z, plan_z, want_z)
+    _stamp("the two-class join")
     merge = _launches()
     _print(f"launches, merge path: {merge}")
     torch.cuda.empty_cache()
     stats["merge_probe_gather_indexed"] = _kernel_indexed(dev, cols_z, two,
                                                           n_wide)
+    _stamp("K4's check")
     del cols_z
     torch.cuda.empty_cache()
 
     _set_launches()
-    phase_padded_joins(dev, data_1m)
+    phase_padded_joins(dev, oracles)
+    _stamp("the padded path's digests")
     phase_padded(dev, cols_h, "sort mode", _sort_plan(*HEADLINE))
     phase_padded(dev, cols_h, "radix 4096-way", _radix_4096_plan())
+    _stamp("the padded 16M x 256M joins")
     padded = _launches()
     _print(f"launches, padded path: {padded}")
     padded_stage_breakdown(cols_h, "sort mode", _sort_plan(*HEADLINE))
     padded_stage_breakdown(cols_h, "radix 4096-way", _radix_4096_plan())
+    _stamp("the padded stage breakdowns")
     torch.cuda.empty_cache()
 
     from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
 
     _set_launches()
-    _npj_digests(f"{SMALL[0]} x {SMALL[1]}", data_1m, dev)
+    _npj_digests(f"{SMALL[0]} x {SMALL[1]}", data_1m, dev,
+                 oracles["small"][1].result())
+    _stamp("NPJ's digests")
     del data_1m
     data_n, _ = _generate(*NPJ_4M, seed=42, mode="uniform")
     cols_n = _device_cols(data_n, dev)
@@ -1095,10 +1237,12 @@ def main() -> None:
     del cols_n
     plan_n = phase_npj(dev, f"{HEADLINE[0]} x {HEADLINE[1]}", cols_h,
                        expected_join_tuples(*HEADLINE))
+    _stamp("the NPJ joins")
     npj = _launches()
     _print(f"launches, npj path: {npj}")
     stats["merge_probe"].update(npj_trace(
         cols_h, f"{HEADLINE[0]} x {HEADLINE[1]}", plan_n))
+    _stamp("the NPJ trace")
     del cols_h
     for path, names, got in (("merge", MERGE_KERNELS, merge),
                              ("padded", PADDED_KERNELS, padded),

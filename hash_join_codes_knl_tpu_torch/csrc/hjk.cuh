@@ -17,6 +17,8 @@
 namespace hjk {
 
 constexpr int32_t kNullKey = INT32_MIN;  // biased null key (hk == 0)
+// dynamic shared memory one block may ask for on the H100 (227 KB)
+constexpr int kMaxSmem = 232448;
 
 // first window slot of tile t: the row anchor, clamped so that the
 // window lies inside the build side (the jnp oracle's dynamic_slice

@@ -28,6 +28,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# dynamic shared memory one block may ask for on the H100 (227 KB); the
+# wrappers size their kernels' tables and staging areas within it
+SMEM_LIMIT = 232_448
+
 _VP, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                          ctypes.c_int)
 # C entry points (csrc/*.cu): every pointer and the stream are void*
@@ -40,11 +44,11 @@ _SIGNATURES = {
     "hjk_merge_probe_gather_indexed": [_VP, _I64, _VP, _VP, _I64, _VP, _VP,
                                        _I64, _I64, _I64, _VP, _VP, _VP],
     "hjk_probe_tiles": [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _VP, _VP,
-                        _VP],
+                        _INT, _INT, _INT, _I64, _VP],
     "hjk_radix_histogram": [_VP, _I64, _I64, _I64, _I64, _INT, _INT, _VP,
                             _VP],
     "hjk_radix_scatter": [_VP, _VP, _I64, _I64, _I64, _I64, _INT, _INT,
-                          _VP, _VP, _VP, _VP],
+                          _VP, _VP, _VP, _INT, _VP],
 }
 
 _lock = threading.Lock()

@@ -14,11 +14,17 @@ on either side.  The kernel, like the TPU kernel, takes no table counts:
 table slots past a partition's fill hold the null key, so the plain
 version's ``table_counts`` mask changes nothing there.
 
-Kernel: ``csrc/probe_tiles.cu``.  Bound on the H100: compares, about
-(live probes) x (live table slots of the partition).  One block sweeps a
-run of consecutive tiles; for each partition the run touches, the table
-row streams through shared memory with its null slots compacted away,
-and each thread keeps eight probes and their accumulators in registers.
+Kernel: ``csrc/probe_tiles.cu``.  Bound on the H100: bytes (probes,
+tile ids and the rows used read once, both outputs written once); the
+function needs one lookup per probe, not a compare per table slot.  One
+block takes a run of consecutive tiles; for each partition the run
+touches it builds an open-addressing hash table of the row in shared
+memory, entries (key, count, max value), and each probe walks from the
+mixed key's index to its key or to an empty entry.  A round of the table
+holds at most ``stage`` live slots; a row with more takes more rounds,
+whose counts add and whose maxes combine.  ``table_geometry`` sizes the
+rounds, the table and the launch here, where the CPU tests reach it;
+``table_index`` mirrors the kernel's mix of a key.
 """
 
 from __future__ import annotations
@@ -27,9 +33,51 @@ import torch
 
 from ..utils.hashing import BIAS, bias
 from . import _build
+from ._build import SMEM_LIMIT
 
 # bound on the plain version's (tiles x tile x slots) compare block
 _PLAIN_BLOCK_ELEMS = 1 << 25
+
+ENTRY_BYTES = 12  # key, count, max value
+MIN_STAGE, MAX_STAGE = 512, 8192
+assert 2 * MAX_STAGE * ENTRY_BYTES <= SMEM_LIMIT  # the largest table fits
+# most probe slots one block takes: a partition's tiles go to one block
+# while they fit (its row is then built once), else to equal shares
+MAX_BLOCK_PROBES = 1 << 17
+
+
+def table_geometry(slots: int, tile: int, n_tiles: int,
+                   partitions: int) -> tuple[int, int, int, int, int]:
+    """(stage, entries, shared-memory bytes, threads, tiles per block) of
+    the kernel for (partitions, slots) tables and n_tiles probe tiles.
+    `stage`, the live slots one round of the table may hold, is `slots`
+    rounded up to a power of two within [MIN_STAGE, MAX_STAGE]; the table
+    has twice as many entries, so a walk always meets an empty one; a
+    thread reads four row slots per chunk, and one chunk must fit a round.
+    A block takes the mean number of tiles of a partition (the radix
+    layout's regions are equal, so there a block is a partition and every
+    row is built once), cut into equal shares past MAX_BLOCK_PROBES."""
+    if min(slots, tile, partitions) < 1 or n_tiles < 0:
+        raise ValueError(f"slots={slots}, tile={tile}, n_tiles={n_tiles}, "
+                         f"partitions={partitions} must be positive")
+    stage = min(MAX_STAGE, max(MIN_STAGE, 1 << (slots - 1).bit_length()))
+    entries = 2 * stage
+    threads = min(1024, stage // 4)
+    per_partition = max(1, -(-n_tiles // partitions))
+    shares = -(-per_partition * tile // MAX_BLOCK_PROBES)
+    return (stage, entries, ENTRY_BYTES * entries, threads,
+            -(-per_partition // shares))
+
+
+def table_index(keys: torch.Tensor, entries: int) -> torch.Tensor:
+    """First table index of each biased key (int64): the kernel's mix
+    (murmur3's 32-bit finalizer) of the key's bits, modulo `entries`.  A
+    row's keys share their top bits, so the index must not be those."""
+    m = 0xFFFFFFFF
+    x = keys.to(torch.int64) & m
+    x = ((x ^ (x >> 16)) * 0x85EBCA6B) & m
+    x = ((x ^ (x >> 13)) * 0xC2B2AE35) & m
+    return (x ^ (x >> 16)) & (entries - 1)
 
 
 def _check(probe_keys, table_keys, table_vals, tile_pid, tile: int) -> None:
@@ -93,9 +141,12 @@ def probe_tiles(probe_keys, table_keys, table_vals, tile_pid, tile: int):
     _check(probe_keys, table_keys, table_vals, tile_pid, tile)
     mv = torch.empty_like(probe_keys)
     mc = torch.empty_like(probe_keys)
+    slots = table_keys.shape[1]
+    stage, entries, _, threads, tiles_per_block = table_geometry(
+        slots, tile, tile_pid.shape[0], table_keys.shape[0])
     _build.launch("hjk_probe_tiles", probe_keys.device, probe_keys,
-                  tile_pid.shape[0], tile, table_keys, table_vals,
-                  table_keys.shape[1], tile_pid, mv, mc)
+                  tile_pid.shape[0], tile, table_keys, table_vals, slots,
+                  tile_pid, mv, mc, stage, entries, threads, tiles_per_block)
     probe_tiles.launches += 1
     return mv, mc
 

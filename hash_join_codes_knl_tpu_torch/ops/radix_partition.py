@@ -13,8 +13,8 @@ null key up to the next run.  Null keys are dropped; counts are exact.
 Geometry, counts, destinations and the overflow rule are the JAX
 function's, one to one, so output shapes and overflow agree.  ``mrr``
 (the largest run, in rows) is the TPU kernel's VMEM staging bound: the
-H100 kernel does not stage, and the bound is kept only so that overflow
-agrees with the reference.  Within a run the port keeps input order (a
+H100 kernel stages sub-chunks, not runs, and the bound is kept only so
+that overflow agrees with the reference.  Within a run the port keeps input order (a
 stable scatter), where the TPU kernel sorts each tile first; against the
 JAX function the runs agree as (key, value) multisets, against the plain
 version here slot for slot.
@@ -24,7 +24,13 @@ Keys are biased (utils/hashing.py): pads are the biased null key
 
 Kernel: ``csrc/radix_partition.cu`` (a per-tile histogram, then a stable
 scatter into outputs prefilled with the null key).  Bound on the H100:
-memory traffic.  The scan between the two launches is plain torch.
+memory traffic.  The histogram runs at the memory rate; the scatter is
+where the time goes, so a block regroups each sub-chunk of its tile by
+partition in shared memory (a stable rank per tuple, a running offset
+per partition carried from sub-chunk to sub-chunk) and writes every run
+with neighbouring threads on neighbouring slots.  ``scatter_geometry``
+sizes the block and its shared memory here, where the CPU tests reach
+it.  The scan between the two launches is plain torch.
 """
 
 from __future__ import annotations
@@ -33,8 +39,27 @@ import torch
 
 from ..utils.hashing import BIAS, unbias
 from . import _build
+from ._build import SMEM_LIMIT
 
 MAX_BITS = 12  # the histogram kernel's shared array holds 4096 counters
+SCATTER_THREADS = 512  # the scatter's block, where shared memory allows
+SUBCHUNK_PER_THREAD = 8  # tuples a thread ranks per sub-chunk (kPerLane)
+
+
+def scatter_geometry(bits: int) -> tuple[int, int, int]:
+    """(threads, sub-chunk tuples, shared-memory bytes) of the scatter
+    kernel at fanout 2^bits: the largest block up to SCATTER_THREADS whose
+    staging area (keys and values of one sub-chunk), per-warp counters
+    (one padded column per warp) and four per-partition arrays fit one
+    block's shared memory."""
+    F = 1 << bits
+    threads = SCATTER_THREADS
+    while True:
+        sub = threads * SUBCHUNK_PER_THREAD
+        smem = 4 * (2 * sub + F * (threads // 32 + 1) + 4 * F)
+        if smem <= SMEM_LIMIT:
+            return threads, sub, smem
+        threads //= 2
 
 
 def _check(hk, vals, bits: int, skip_bits: int, tile: int,
@@ -92,7 +117,10 @@ def _destinations(cnt: torch.Tensor, regions: int, mrr: int, cap: int):
     F = cnt.shape[1]
     cnt3 = cnt.view(regions, -1, F).to(torch.int64)
     run_rows = (cnt3 + 127) // 128
-    fill = torch.cumsum(run_rows, 1) - run_rows
+    # the scan runs along the tiles; with the tiles innermost it is one
+    # parallel scan per (region, partition) instead of a serial walk
+    fill = torch.cumsum(run_rows.transpose(1, 2).contiguous(),
+                        2).transpose(1, 2) - run_rows
     cap_rows = cap // 128
     base = torch.arange(regions * F, device=cnt.device).view(regions, 1, F)
     bad = (fill + mrr > cap_rows) | (run_rows > mrr)
@@ -174,7 +202,8 @@ def radix_partition(hk, vals, bits: int, skip_bits: int = 0, cap: int = 0,
                        device=hk.device)
     out_v = torch.zeros_like(out_k)
     _build.launch("hjk_radix_scatter", hk.device, hk, vals, regions, n, tile,
-                  n_tiles, bits, skip_bits, dst, out_k, out_v)
+                  n_tiles, bits, skip_bits, dst, out_k, out_v,
+                  scatter_geometry(bits)[0])
     radix_partition.launches += 1
     return out_k, out_v, counts, overflow
 

@@ -236,6 +236,89 @@ def test_probe_tiles_kernel_on_radix_regions(cuda):
     assert _equal(pt.probe_tiles(*args), want)
 
 
+def _constructed_probe_case(dev, case):
+    """A table and a probe layout built slot by slot (the kernel takes
+    tile_pid as given, so keys need not hash to their partition).
+    Returns probe_tiles' arguments."""
+    rng = np.random.default_rng(len(case))
+    P, slots, tile, tiles_per_pid = 3, 9216, 128, 5
+    if case in ("one_index", "block_crosses_partitions"):
+        P, slots, tiles_per_pid = 8, 1024, 3
+    if case == "block_crosses_partitions":  # 3 tiles a block, on average
+        tiles_per_pid = [1, 5, 2, 4, 1, 5, 3, 3]
+    if case == "unaligned":
+        P, slots, tile, tiles_per_pid = 3, 1030, 129, 4
+    pool = np.unique(rng.integers(1, 2**32, 4 * P * slots, dtype=np.uint32))
+    pool = rng.permutation(pool)
+    tk = pool[: P * slots].reshape(P, slots).copy()
+    if case == "full_row":
+        pass  # every slot live: 9216 live slots take two rounds
+    elif case == "one_key_row":
+        tk[0, :] = tk[0, 0]  # one entry, its count split over two rounds
+        tk[1, 100:] = tk[1, 7]
+    elif case == "one_index":
+        # every key of a row starts its walk at the same table entry
+        entries = pt.table_geometry(slots, tile, P * tiles_per_pid, P)[1]
+        cand = np.unique(rng.integers(1, 2**32, 400_000, dtype=np.uint32))
+        idx = pt.table_index(bias(u32_to_device(cand, dev)),
+                             entries).cpu().numpy()
+        for p in range(P):
+            same = cand[idx == p][:40]
+            assert len(same) == 40
+            tk[p, :] = 0
+            tk[p, rng.permutation(slots)[:120]] = np.repeat(same, 3)
+    elif case == "null_rows":
+        tk[1, :] = 0
+        tk[2, 50:] = 0
+    else:
+        tk[rng.random(tk.shape) < 0.55] = 0  # null-interleaved rows
+    tv = rng.integers(0, 2**32, tk.shape, dtype=np.uint32)
+    tpid = np.repeat(np.arange(P), tiles_per_pid).astype(np.int32)
+    n_tiles = len(tpid)
+    pk = np.empty((n_tiles, tile), np.uint32)
+    for t in range(n_tiles):
+        row = tk[tpid[t]]
+        live = row[row != 0]
+        src = live if len(live) else pool[-100:]
+        pk[t] = src[rng.integers(0, len(src), tile)]
+        pk[t, rng.random(tile) < 0.3] = pool[-1 - rng.integers(0, 1000)]
+        pk[t, rng.random(tile) < 0.1] = 0
+    if case == "null_probe_tiles":
+        pk[2:7] = 0
+        pk[-1] = 0
+    return (bias(u32_to_device(pk.reshape(-1), dev)),
+            bias(u32_to_device(tk.reshape(-1), dev)).view(P, slots),
+            u32_to_device(tv.reshape(-1), dev).view(P, slots),
+            torch.from_numpy(tpid).to(dev), tile)
+
+
+@pytest.mark.parametrize("case", [
+    "full_row", "one_key_row", "one_index", "null_rows", "null_probe_tiles",
+    "block_crosses_partitions", "unaligned"])
+def test_probe_tiles_kernel_constructed(cuda, case):
+    """The hash-table probe on rows that fill a round and spill into a
+    second one, on one key repeated through a row (its count summed over
+    the rounds), on keys that all start at one table entry, on all-null
+    rows and all-null probe tiles, on a block whose run of tiles crosses
+    partitions, and on shapes that rule out 16-byte accesses."""
+    args = _constructed_probe_case(cuda, case)
+    tile, slots = args[4], args[1].shape[1]
+    if case == "block_crosses_partitions":
+        tpb = pt.table_geometry(slots, tile, args[3].shape[0],
+                                args[1].shape[0])[4]
+        first_block = args[3][:tpb].tolist()
+        assert tpb == 3 and first_block == [0, 1, 1]
+    want = pt.probe_tiles_torch(*args)
+    assert int(want[1].sum()) > 0
+    if case == "one_key_row":
+        assert int(want[1].max()) == slots
+    assert _equal(pt.probe_tiles(*args), want)
+    if case == "unaligned":  # a view that starts off a 16-byte boundary
+        pk = torch.cat([args[0][:1], args[0]])[1:]
+        assert pk.data_ptr() % 16 and pk.is_contiguous()
+        assert _equal(pt.probe_tiles(pk, *args[1:]), want)
+
+
 def _radix_inputs(dev, n, seed, nulls=0, skew=False):
     rng = np.random.default_rng(seed)
     hk = rng.integers(1, 2**32, n, dtype=np.uint32)
@@ -256,6 +339,10 @@ def _radix_inputs(dev, n, seed, nulls=0, skew=False):
     (1 << 20, 12, 0, 0, 32768, 0, False, 1),  # 4096-way in one pass
     (1 << 20, 1, 31, 0, 32768, 0, False, 1),
     (64 * 5000, 6, 6, 0, 32768, 20000, False, 64),  # a pass-2 batch
+    (50000, 6, 0, 0, 12288, 500, False, 1),  # tile = 1.5 sub-chunks
+    (100000, 6, 0, 0, 20480, 0, False, 1),  # tile = 2.5 sub-chunks, ragged
+    (1 << 19, 11, 0, 0, 32768, 100, False, 1),  # a smaller block
+    (3 * 70000, 1, 4, 0, 16384, 9000, False, 3),  # long runs, 3 regions
     (0, 3, 0, 0, 32768, 0, False, 1),  # empty: no launch
 ])
 def test_radix_partition_kernel_matches_plain(cuda, n, bits, skip, cap, tile,

@@ -248,3 +248,79 @@ def test_multipass_keeps_the_reference_unroll_cap():
     hk = torch.zeros(1024, dtype=torch.int32)
     with pytest.raises(ValueError, match="64"):
         trp.multipass_partition(hk, hk.clone(), (7, 3))
+
+
+@pytest.mark.parametrize("bits", range(1, trp.MAX_BITS + 1))
+def test_scatter_geometry_fits_one_block(bits):
+    """Staging area, per-warp counters (a padded column per warp) and the
+    per-partition arrays fit one block's shared memory at every fanout;
+    the main path's 64-way passes get the full block."""
+    threads, sub, smem = trp.scatter_geometry(bits)
+    F = 1 << bits
+    assert threads % 32 == 0 and 32 <= threads <= trp.SCATTER_THREADS
+    assert sub == threads * trp.SUBCHUNK_PER_THREAD
+    assert smem == 4 * (2 * sub + F * (threads // 32 + 1) + 4 * F)
+    assert smem <= trp.SMEM_LIMIT == 232448
+    if bits <= 6:
+        assert (threads, sub) == (512, 4096)
+
+
+def _subchunk_model(hk, vals, bits, skip, cap, tile, regions, sub):
+    """The kernel's scatter in numpy: a block per tile walks it in
+    sub-chunks of `sub` tuples; within a sub-chunk each live tuple's rank
+    in its partition is its input order; a running offset per partition
+    carries over the sub-chunks.  Destinations and overflow come from the
+    port's own histogram rule."""
+    F = 1 << bits
+    n = len(hk) // regions
+    tile, n_tiles, mrr, cap = trp.geometry(n, bits, cap, tile)
+    key_t = bias(u32_to_device(hk, "cpu"))
+    pid = trp._pids(key_t, bits, skip).numpy()
+    cnt = np.zeros((regions * n_tiles, F), np.int32)
+    for g in range(regions * n_tiles):
+        r, t = divmod(g, n_tiles)
+        seg = pid[r * n + t * tile: r * n + min((t + 1) * tile, n)]
+        cnt[g] = np.bincount(seg[seg < F], minlength=F)
+    dst, counts, overflow = trp._destinations(torch.from_numpy(cnt), regions,
+                                              mrr, cap)
+    dst = dst.numpy()
+    out_k = np.zeros(regions * F * cap, np.uint32)
+    out_v = np.zeros(regions * F * cap, np.uint32)
+    for g in range(regions * n_tiles):
+        r, t = divmod(g, n_tiles)
+        lo, hi = r * n + t * tile, r * n + min((t + 1) * tile, n)
+        off = np.zeros(F, np.int64)
+        for c0 in range(lo, hi, sub):
+            p = pid[c0:min(c0 + sub, hi)]
+            for q in np.unique(p[p < F]):
+                at = c0 + np.nonzero(p == q)[0]  # input order
+                if dst[g, q] >= 0:
+                    slot = dst[g, q] * 128 + off[q] + np.arange(len(at))
+                    out_k[slot] = hk[at]
+                    out_v[slot] = vals[at]
+                off[q] += len(at)
+    return out_k, out_v, counts.numpy(), int(overflow)
+
+
+@pytest.mark.parametrize("n,bits,skip,cap,tile,regions,sub,nulls,ovf", [
+    (6000, 3, 0, 0, 2048, 1, 256, 300, 0),  # 8 sub-chunks a tile
+    (5000, 2, 5, 0, 1536, 1, 1024, 0, 0),  # tile = 1.5 sub-chunks, ragged
+    (3 * 2000, 3, 3, 0, 1024, 3, 384, 100, 0),  # regions, ragged
+    (4096, 3, 0, 512, 2048, 1, 512, 0, 1),  # an overflowing region
+])
+def test_subchunked_scatter_model_matches_plain(n, bits, skip, cap, tile,
+                                                regions, sub, nulls, ovf):
+    """Running offsets across sub-chunks keep the scatter stable: the
+    model equals the plain version slot for slot, pads included."""
+    hk, vals = _data(n, n + sub)
+    rng = np.random.default_rng(sub)
+    hk[rng.integers(0, n, nulls)] = 0
+    if ovf:
+        hk[: n // 2] = 0x9E3779B1
+    want = _port(hk, vals, bits, skip, cap, tile, regions)
+    got = _subchunk_model(hk, vals, bits, skip, cap, tile, regions, sub)
+    assert got[3] == want[3] == ovf
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (want[0] != 0).sum() > n // 4

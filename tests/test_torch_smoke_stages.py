@@ -1,7 +1,8 @@
 """chip_smoke.py's helpers on the CPU: the padded stage breakdown runs
 _phj_join_padded's steps one by one, and its results must equal the
 engine's; the two-class plan's set-up leaves the launch counts as they
-were; the trace's interval union and the binary-search probe's bound."""
+were; the trace's interval union, the binary-search probe's bound and
+the tile probe's."""
 
 import dataclasses
 import importlib.util
@@ -131,3 +132,69 @@ def test_search_bound_reads_the_union_of_windows():
     nbytes = 12 * 256 + 4 * 4 + 4 * 640 + 4 * 128
     assert got == smoke._bound(nbytes, 2 * 192 * 8)
     assert got["bound_by"] == "bytes"
+
+
+def test_tile_probe_bound_counts_bytes_and_one_lookup_per_probe():
+    """5 tiles of 64 probes on rows 1, 1, 2, 2 and 5 of an (8, 256)
+    table: probes (4 B) and both outputs (8 B) per slot, a tile id per
+    tile, keys and values of the three rows used; one lookup per live
+    probe, far under the bytes' time."""
+    smoke = _chip_smoke()
+    pk = torch.arange(1, 321, dtype=torch.int32)
+    pk[::5] = -2**31  # null probes: read and written, never looked up
+    tk = torch.zeros((8, 256), dtype=torch.int32)
+    tpid = torch.tensor([1, 1, 2, 2, 5], dtype=torch.int32)
+    got = smoke._tile_probe_bound(pk, tk, tpid, 64)
+    nbytes = 12 * 320 + 4 * 5 + 8 * 256 * 3
+    assert got == smoke._bound(nbytes, 256)
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == nbytes / smoke.HBM_BYTES_PER_S * 1e3
+
+
+def test_full_rows_fill_only_the_rows_under_the_tiles():
+    """Every slot of a row under a listed tile becomes live (a probe key
+    of that tile, or a key of its own under a null probe); live slots and
+    all other rows stay; the kernel's wrapper, on the CPU, then agrees on
+    those tiles inside a run over all tiles."""
+    smoke = _chip_smoke()
+    null = -2**31
+    g = torch.Generator().manual_seed(3)
+    tk = torch.randint(1, 1000, (6, 40), dtype=torch.int32, generator=g)
+    tk[torch.rand(tk.shape, generator=g) < 0.6] = null
+    tv = torch.randint(0, 99, (6, 40), dtype=torch.int32, generator=g)
+    tpid = torch.tensor([0, 0, 1, 3, 3, 3, 4, 5], dtype=torch.int32)
+    pk = torch.randint(1, 1000, (8 * 16,), dtype=torch.int32, generator=g)
+    pk[::3] = null
+    pk_s, tp_s, sel = smoke._spread_tiles(pk, tpid, 16, 3)
+    assert sel.tolist() == [0, 3, 7] and tp_s.tolist() == [0, 3, 5]
+    full = smoke._full_rows(tk, pk_s, tp_s, 16)
+    assert bool((full[[0, 3, 5]] != null).all())
+    assert torch.equal(full[[1, 2, 4]], tk[[1, 2, 4]])
+    assert bool((full == tk)[tk != null].all())
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+
+    want = pt.probe_tiles_torch(pk_s, full, tv, tp_s, 16)
+    assert int(want[1].max()) > 1
+    smoke._check_full_probe("cpu", (pk, full, tv, tpid, 16), sel, want)
+
+
+def test_oracle_threads_give_the_oracle_digests(monkeypatch):
+    """The digest cases: each relation comes with a future of
+    join_oracle's digest of it, computed on a host thread; the 1M x 8M
+    case is the relation handed in."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "HEADLINE_4M", (2000, 9000))
+    monkeypatch.setattr(smoke, "RADIX_4M", (1000, 3000))
+    small, _ = smoke._generate(500, 2000, seed=41, mode="uniform")
+    cases = smoke._start_oracles(small)
+    assert sorted(cases) == ["radix_4m", "small", "uniform_4m", "zipf_4m"]
+    assert cases["small"][0] is small
+    for name, rows in (("small", 2000), ("uniform_4m", 9000),
+                       ("zipf_4m", 9000), ("radix_4m", 3000)):
+        data, digest = cases[name]
+        want = digest.result(timeout=120)
+        assert len(data[1].keys) == rows
+        assert want == smoke._oracle_digest(data) and want[0] > 0
+    top = [np.unique(cases[name][0][1].keys, return_counts=True)[1].max()
+           for name in ("zipf_4m", "uniform_4m")]
+    assert top[0] > 3 * top[1]  # the Zipf case is the skewed one
