@@ -6,7 +6,8 @@ its Zipf z=1.0 twin and the two-class window geometry on the same
 columns.  The padded path (sort-mode and radix-partitioned PHJ): digests
 against the oracle, then 16M x 256M in sort mode and in the 4096-way
 radix mode.  The NPJ path (npj_join): digests against the oracle, then
-4M x 16M and 16M x 256M in both output orders.
+4M x 16M and 16M x 256M in both output orders, then the dense window
+probe alone on the 16M x 256M table.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -66,19 +68,35 @@ def _live(hk) -> int:
     return int((hk != -2**31).sum())
 
 
-def _search_bound(probe, wrow, window: int, n_build: int, mc,
-                  entry_bytes: int = 4) -> dict:
-    """Bound of a binary-search window probe (K3, K4) over the probe
-    slots `probe`, one window per entry of `wrow` (entry_bytes read per
-    entry: the anchor, and K4's tile id): the probes read, the build keys
-    of the union of the windows read once, one build value per matched
-    probe (val[hi - 1]; mc is the call's counts), both outputs written;
-    two searches of ceil(log2(window)) compares per live probe."""
+def _window_union(wrow, window: int, n_build: int) -> int:
+    """Build slots in the union of the windows anchored at `wrow` (the
+    kernels' clamp of each start)."""
     starts = torch.sort((wrow.long() * 128).clamp(
         0, max(0, n_build - window))).values
-    union = (int((starts[1:] - starts[:-1]).clamp(max=window).sum())
-             + window if starts.numel() else 0)
-    nbytes = (12 * probe.numel() + entry_bytes * wrow.numel() + 4 * union
+    return (int((starts[1:] - starts[:-1]).clamp(max=window).sum())
+            + window if starts.numel() else 0)
+
+
+def _table_bound(probe, wrow, window: int, n_build: int) -> dict:
+    """Bound of the dense window probe (K2) over the probe slots `probe`:
+    the probes and anchors read, the union of the windows read once (keys
+    and values), both outputs written.  The function needs one lookup a
+    probe, so there is no compare term: the TPU kernel's all-pairs sweep
+    is that design's work, not the function's."""
+    return _bound(12 * probe.numel() + 4 * wrow.numel()
+                  + 8 * _window_union(wrow, window, n_build))
+
+
+def _search_bound(probe, wrow, window: int, n_build: int, mc,
+                  entry_bytes: int = 4) -> dict:
+    """Bound of a sorted-window probe (K3, K4) over the probe slots
+    `probe`, one window per entry of `wrow` (entry_bytes read per entry:
+    the anchor, and K4's tile id): the probes read, the build keys of the
+    union of the windows read once, one build value per matched probe
+    (val[hi - 1]; mc is the call's counts), both outputs written; two
+    searches of ceil(log2(window)) compares per live probe."""
+    nbytes = (12 * probe.numel() + entry_bytes * wrow.numel()
+              + 4 * _window_union(wrow, window, n_build)
               + 4 * int((mc > 0).sum()))
     return _bound(nbytes, 2 * _live(probe) * max(1, (window - 1).bit_length()))
 
@@ -96,6 +114,24 @@ def _sort_plan(ni, no):
     from hash_join_codes_knl_tpu_torch.engine.config import plan_join
 
     return dataclasses.replace(plan_join(ni, no), probe_impl="pallas")
+
+
+def _ptxas_report(text: str) -> list:
+    """(kernel, "registers, barriers, shared memory; stack and spills")
+    for every kernel in nvcc's -Xptxas -v output (empty when the library
+    came from the cache)."""
+    out, kernel, spills = [], None, ""
+    for line in text.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            m = re.search(r"([a-z_]+_kernel)E", line)
+            kernel = m.group(1) if m else line.split("'")[1]
+        elif "spill" in line:
+            spills = line
+        elif "registers" in line and kernel:
+            out.append((kernel, f"{line.split(':', 1)[1].strip()}; {spills}"))
+            kernel = None
+    return out
 
 
 def _print(*a):
@@ -254,26 +290,27 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
            f"plain {plain_ms:.4f} ms at the last")
 
     # K2: the dense probe at the 1M x 8M plan (tile 2048, window 1024)
-    s = _stages(cols_1m, plan_join(*SMALL))
+    plan_s = plan_join(*SMALL)
+    s = _stages(cols_1m, plan_s)
     bhk, bval, ohk, _, wrow, tile, window = s
     small = (ohk[: 16 * tile], bhk, bval, wrow[:16], tile, window)
     _check_equal("merge_probe small", mp.merge_probe(*small),
                  mp.merge_probe_torch(*small))
-    full = (ohk, bhk, bval, wrow, tile, window)
+    full = (ohk, bhk, bval, wrow, tile, window, max(1, plan_s.probe_chunks))
     got, want = mp.merge_probe(*full), mp.merge_probe_torch(*full)
     _check_equal("merge_probe", got, want)
     ms = _median_ms(lambda: mp.merge_probe(*full), 20)
     plain_ms = _median_ms(lambda: mp.merge_probe_torch(*full), 3)
-    # the dense sweep compares every live probe with every window slot
     cap = ohk.shape[0]
+    geo = mp.window_table_geometry(window, tile, cap // tile)
     out["merge_probe"] = dict(
         max_abs_err=_max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
-        **_bound(4 * cap + 4 * (cap // tile) + 8 * bhk.shape[0] + 8 * cap,
-                 _live(ohk) * window),
+        **_table_bound(ohk, wrow, window, bhk.shape[0]),
         shape=f"probes={cap} tile={tile} window={window}")
     _print(f"phase kernels: merge_probe equal at 16 tiles and all "
-           f"{ohk.shape[0] // tile} tiles, tile {tile}, window {window}; "
-           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+           f"{ohk.shape[0] // tile} tiles, tile {tile}, window {window}, "
+           f"{plan_s.probe_chunks} chunks ({geo}); kernel {ms:.4f} ms, "
+           f"plain {plain_ms:.4f} ms")
 
     # K3: the binary-search probe at the headline plan (tile 3072, window
     # 15104).  The plain version's compares scale with tile x window, so
@@ -291,20 +328,29 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
     bound = _search_bound(sub[0], sub[3], window, bhk.shape[0], got[1])
     ms = _median_ms(lambda: mg.merge_probe_gather(*sub), 20)
     plain_ms = _median_ms(lambda: mg.merge_probe_torch(*sub), 3)
-    full = (ohk, bhk, bval, wrow, tile, window)
+    # all tiles in the engine's block order over the plan's chunks
+    full = (ohk, bhk, bval, wrow, tile, window, plan_h.probe_chunks)
     got = mg.merge_probe_gather(*full)
     _check_equal("merge_probe_gather vs merge_probe, full", got,
                  mp.merge_probe(*full))
     bound_full = _search_bound(ohk, wrow, window, bhk.shape[0], got[1])
     ms_full = _median_ms(lambda: mg.merge_probe_gather(*full), 10)
+    # K2 on the same tiles: data for the gather band's dispatch constants
+    ms_dense = _median_ms(lambda: mp.merge_probe(*full), 5)
+    out["merge_probe"].update(
+        ms_headline_tiles=ms_dense, bound_ms_headline_tiles=_table_bound(
+            ohk, wrow, window, bhk.shape[0])["bound_ms"])
     out["merge_probe_gather"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_full=ms_full,
         bound_ms_full=bound_full["bound_ms"], **bound,
         shape=f"256 of {n_tiles} tiles, tile={tile} window={window}")
     _print(f"phase kernels: merge_probe_gather equal to plain on 256 of "
            f"{n_tiles} tiles and to merge_probe on all, tile {tile}, "
-           f"window {window}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-           f"(256 tiles); kernel {ms_full:.4f} ms on all tiles")
+           f"window {window}, {plan_h.probe_chunks} chunks, geometry "
+           f"{mg.gather_geometry(window, tile)}; kernel {ms:.4f} ms, plain "
+           f"{plain_ms:.4f} ms (256 tiles); kernel {ms_full:.4f} ms on all "
+           f"tiles (bound {bound_full['bound_ms']:.4f} ms); merge_probe "
+           f"{ms_dense:.4f} ms on all tiles")
     del bhk, bval, ohk, wrow, sub, full, got, want
     torch.cuda.empty_cache()
     out["probe_tiles"] = _kernel_probe_tiles(dev, cols_h)
@@ -1029,27 +1075,30 @@ def _union_us(intervals) -> float:
     return total
 
 
-def _device_intervals(fn) -> list:
+def _device_intervals(fn, want=()) -> list:
     """(kernel name, start us, end us) of every device interval of one
-    fn() under torch.profiler, after one warm-up call."""
+    fn() under torch.profiler, after one warm-up call; the trace must
+    hold a kernel whose name contains each string of `want`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    # now and then torch.profiler comes back with no device events at
-    # all; the call is traced once more then, and an empty trace fails
-    for _ in range(2):
+    # now and then torch.profiler comes back with no device events, or
+    # without one of the call's kernels; the call is traced again then,
+    # and a third such trace fails
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         ks = [(e.name, e.time_range.start, e.time_range.end)
               for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if ks:
+        if ks and all(any(w in name for name, _, _ in ks) for w in want):
             return ks
-        _print("the profiler returned no device intervals; tracing again")
-    raise AssertionError("the profiler returned no device intervals twice")
+        _print(f"the profiler's trace missed device intervals ({len(ks)} "
+               f"intervals, wanted {want}); tracing again")
+    raise AssertionError(f"three traces missed device intervals {want}")
 
 
 RADIX_SPLIT = (("histogram", "radix_histogram_kernel"),
@@ -1064,7 +1113,8 @@ def radix_trace(args, label) -> dict:
     of _destinations).  Runs outside the counted path runs."""
     from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
 
-    ks = _device_intervals(lambda: rp.radix_partition(*args))
+    ks = _device_intervals(lambda: rp.radix_partition(*args),
+                           [tag for _, tag in RADIX_SPLIT[:2]])
     split = dict.fromkeys([k for k, _ in RADIX_SPLIT] + ["destinations"], 0.0)
     calls = dict.fromkeys(split, 0)
     for name, a, b in ks:
@@ -1072,9 +1122,6 @@ def radix_trace(args, label) -> dict:
                     "destinations")
         split[part] += (b - a) / 1e3
         calls[part] += 1
-    if not split["histogram"] or not split["scatter"]:
-        raise AssertionError(f"radix trace {label}: a kernel is missing from "
-                             f"the trace: {split}")
     span = max(b for _, _, b in ks) - min(a for _, a, _ in ks)
     _print(f"phase kernels: radix_partition {label} traced: {len(ks)} device "
            f"intervals over {span / 1e3:.4f} ms; device ms "
@@ -1087,37 +1134,72 @@ def npj_trace(cols, label, plan) -> dict:
     """One input-order npj_join at its final plan under torch.profiler:
     device ms by kernel name (summed intervals, largest first), the
     device's busy share between the call's first and last kernel, and
-    K2's time and bound at this shape.  Runs outside the counted path
-    runs."""
+    K2's traced time.  Runs outside the counted path runs."""
     from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
 
     torch.cuda.empty_cache()
-    ks = _device_intervals(lambda: npj_join(*cols, plan))
+    ks = _device_intervals(lambda: npj_join(*cols, plan),
+                           ["merge_probe_dense_kernel"])
     by_name = {}
     for name, a, b in ks:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     k2_ms = sum(ms for name, ms in by_name.items()
                 if "merge_probe_dense_kernel" in name)
-    if not k2_ms:
-        raise AssertionError(f"npj {label}: the trace shows no K2 kernel")
     span = max(b for _, _, b in ks) - min(a for _, a, _ in ks)
     busy = _union_us([(a, b) for _, a, b in ks])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    # K2 as bounded in phase kernels: probes, anchors, the table and both
-    # outputs; every live probe against every window slot
-    ik, _, ok, _ = cols
-    cap = -(-ok.shape[0] // plan.tile) * plan.tile
-    window = min(-(-plan.window // 128) * 128, plan.table_size)
-    bound = _bound(4 * cap + 4 * (cap // plan.tile) + 8 * plan.table_size
-                   + 8 * cap, int((ok != 0).sum()) * window)
     _print(f"phase npj: {label} input order, traced: {len(ks)} device "
            f"intervals, busy {busy / 1e3:.4f} of {span / 1e3:.4f} ms between "
            f"the first and last kernel ({busy / span:.4f}); K2 {k2_ms:.4f} "
-           f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) at "
-           f"{cap} probes, window {window}")
+           f"ms")
     for name, ms in top[:8]:
         _print(f"phase npj: {label} traced kernel ms {ms:.4f}  {name[:100]}")
-    return dict(ms_npj=k2_ms, bound_ms_npj=bound["bound_ms"])
+    return dict(ms_npj=k2_ms)
+
+
+def npj_probe_inputs(cols, plan) -> tuple:
+    """K2's arguments in npj_join's sorted probe at this plan, through
+    the engine's own steps: (probe keys, table keys, table values, wrow,
+    tile, window)."""
+    from hash_join_codes_knl_tpu_torch.engine import npj
+    from hash_join_codes_knl_tpu_torch.utils.hashing import bias
+
+    ik, iv, ok, _ = cols
+    tk, tv, _, _ = npj.npj_build(ik, iv, plan)
+    k_s, _, wrow, _, window = npj.sorted_probe_layout(ok, plan, tk.shape[0],
+                                                      plan.window)
+    return bias(k_s), tk, tv, wrow, plan.tile, window
+
+
+def _kernel_npj_probe(cols, label, plan) -> dict:
+    """K2 on NPJ's table at its final plan: held against its plain
+    version on 256 tiles spread over the sorted probe, then timed on all
+    tiles with CUDA events, with its byte bound (the probes, the anchors,
+    the union of the windows and both outputs).  Runs outside the counted
+    path runs."""
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
+
+    ohk, tk, tv, wrow, tile, window = npj_probe_inputs(cols, plan)
+    n_tiles = ohk.shape[0] // tile
+    sel = torch.linspace(0, n_tiles - 1, 256, device=ohk.device).long()
+    sub = (ohk.view(n_tiles, tile)[sel].reshape(-1).contiguous(), tk, tv,
+           wrow[sel].contiguous(), tile, window)
+    got, want = mp.merge_probe(*sub), mp.merge_probe_torch(*sub)
+    _check_equal(f"merge_probe on NPJ's {label} table, 256 tiles", got,
+                 want)
+    err = _max_abs_err(got, want)
+    plain_ms = _median_ms(lambda: mp.merge_probe_torch(*sub), 3)
+    full = (ohk, tk, tv, wrow, tile, window)
+    ms = _median_ms(lambda: mp.merge_probe(*full), 10)
+    bound = _table_bound(ohk, wrow, window, tk.shape[0])
+    _print(f"phase npj: {label} merge_probe equal to plain on 256 of "
+           f"{n_tiles} tiles of the sorted probe (table {tk.shape[0]} slots, "
+           f"tile {tile}, window {window}, "
+           f"{mp.window_table_geometry(window, tile, n_tiles)}); kernel "
+           f"{ms:.4f} ms on all tiles, bound {bound['bound_ms']:.4f} ms "
+           f"({bound['bound_by']}); plain {plain_ms:.4f} ms (256 tiles)")
+    return dict(max_abs_err_npj=err, ms_npj_events=ms,
+                bound_ms_npj=bound["bound_ms"], plain_ms_npj=plain_ms)
 
 
 KERNELS = [
@@ -1162,9 +1244,8 @@ def main() -> None:
     _build.library()
     _print(f"phase build: kernels ready in {time.perf_counter() - t0:.3f} s "
            f"(nvcc {_build.build_info['seconds']:.3f} s)")
-    for line in _build.build_info["ptxas"].splitlines():
-        if "registers" in line:
-            _print(f"phase build: {line.strip()}")
+    for kernel, report in _ptxas_report(_build.build_info["ptxas"]):
+        _print(f"phase build: ptxas {kernel}: {report}")
 
     from hash_join_codes_knl_tpu_torch.engine.config import plan_join
 
@@ -1243,6 +1324,13 @@ def main() -> None:
     stats["merge_probe"].update(npj_trace(
         cols_h, f"{HEADLINE[0]} x {HEADLINE[1]}", plan_n))
     _stamp("the NPJ trace")
+    torch.cuda.empty_cache()
+    stats["merge_probe"].update(_kernel_npj_probe(
+        cols_h, f"{HEADLINE[0]} x {HEADLINE[1]}", plan_n))
+    stats["merge_probe"]["max_abs_err"] = max(
+        stats["merge_probe"]["max_abs_err"],
+        stats["merge_probe"].pop("max_abs_err_npj"))
+    _stamp("K2's check on NPJ's table")
     del cols_h
     for path, names, got in (("merge", MERGE_KERNELS, merge),
                              ("padded", PADDED_KERNELS, padded),

@@ -20,9 +20,9 @@ Probe, two engines:
   by the dense window probe (K2, ops/merge_probe.py: the kernel on a
   CUDA tensor, its plain version on a CPU tensor), and the results go
   back to the input order by one scatter (``order="input"``) or stay in
-  the sorted order (``order="sorted"``).  K2 only: the parked table
-  interleaves empty slots, so windows are not key-sorted and the
-  binary-search probe (K3) does not apply.
+  the sorted order (``order="sorted"``).  Windows of the parked table
+  are not key-sorted, so the probe is K2, which needs no sorted window
+  (its hash table of a window skips the empty slots).
 * "chain": the chain walk, a loop of gathers over the active probes in
   plain torch (the JAX package runs it in XLA, outside Pallas).  It is
   the semantic oracle and the ``npj_chain`` ablation.
@@ -154,13 +154,42 @@ def npj_probe(table_keys, table_vals, probe_keys, plan: NpjPlan):
     return mval.to(torch.int32), mcnt
 
 
+def sorted_probe_layout(probe_keys, plan: NpjPlan, size: int,
+                        window: int):
+    """The sorted probe's layout: probes padded to a tile multiple and
+    sorted by (home bucket, key), one stable sort of the packed int64
+    (h0 << 32) | key.  Returns (k_s, perm, wrow, hi, window): the sorted
+    raw keys (pads are key 0), the permutation from the padded input, each
+    tile's anchor row (int32), its last home bucket, and the window
+    rounded up to the 128-slot quantum and clamped to the table (a wider
+    window would anchor before the table start)."""
+    n = probe_keys.shape[0]
+    rows_total = size // 128
+    tile = plan.tile
+    cap = -(-n // tile) * tile
+    window = min(-(-window // 128) * 128, rows_total * 128)
+    h0 = range_hash(probe_keys, plan.factor, plan.buckets)
+    # pads (key 0) park at the last bucket, so mixed tiles keep a sane span
+    h0 = torch.where(probe_keys != 0, h0, plan.buckets - 1)
+    pad = cap - n
+    h0p = torch.cat([h0, h0.new_full((pad,), plan.buckets - 1)])
+    kp = torch.cat([probe_keys, probe_keys.new_zeros(pad)])
+    # h0 < 2^31, so the packed value is never negative; the stable sort
+    # makes CPU and CUDA runs agree slot for slot
+    packed = (h0p << 32) | (kp.to(torch.int64) & _U32_MASK)
+    packed, perm = torch.sort(packed, stable=True)
+    h0_s = packed >> 32
+    k_s = packed.to(torch.int32)  # the low word: the raw key bits
+    wrow = (h0_s[::tile] // 128).clamp(0, rows_total - window // 128)
+    return k_s, perm, wrow.to(torch.int32), h0_s[tile - 1 :: tile], window
+
+
 def npj_probe_sorted(table_keys, table_vals, probe_keys, plan: NpjPlan,
                      max_disp, window: int, probe_vals=None,
                      order: str = "input"):
     """Home-bucket-ordered window probe.
 
-    Probes are padded to a tile multiple and sorted by (home bucket,
-    key), one sort of the packed int64 (h0 << 32) | key.  Tile t is swept
+    Probes are laid out by ``sorted_probe_layout``; tile t is probed
     against the table slots [wrow[t] * 128, + window) by K2.
 
     order="input": returns (match_vals, match_cnts, overflow) in the
@@ -176,33 +205,15 @@ def npj_probe_sorted(table_keys, table_vals, probe_keys, plan: NpjPlan,
         raise ValueError("order='sorted' needs probe_vals")
     n = probe_keys.shape[0]
     size = table_keys.shape[0]
-    rows_total = size // 128
-    tile = plan.tile
-    cap = -(-n // tile) * tile
-    # round up to the 128-slot quantum, and clamp to the table: a wider
-    # window would anchor before the table start
-    window = min(-(-window // 128) * 128, rows_total * 128)
-    h0 = range_hash(probe_keys, plan.factor, plan.buckets)
-    # pads (key 0) park at the last bucket, so mixed tiles keep a sane span
-    h0 = torch.where(probe_keys != 0, h0, plan.buckets - 1)
-    pad = cap - n
-    h0p = torch.cat([h0, h0.new_full((pad,), plan.buckets - 1)])
-    kp = torch.cat([probe_keys, probe_keys.new_zeros(pad)])
-    # h0 < 2^31, so the packed value is never negative; the stable sort
-    # makes CPU and CUDA runs agree slot for slot
-    packed = (h0p << 32) | (kp.to(torch.int64) & _U32_MASK)
-    packed, perm = torch.sort(packed, stable=True)
-    h0_s = packed >> 32
-    k_s = packed.to(torch.int32)  # the low word: the raw key bits
-    lo = h0_s[::tile]
-    hi = h0_s[tile - 1 :: tile]
-    wrow = (lo // 128).clamp(0, rows_total - window // 128)
+    k_s, perm, wrow, hi, window = sorted_probe_layout(probe_keys, plan,
+                                                      size, window)
+    pad = k_s.shape[0] - n
     # the required span clamps to the table end: a cluster parked near
     # the tail cannot extend past it
     need_end = (hi + max_disp + 1).clamp(max=size)
-    overflow = (need_end - wrow * 128 > window).sum()
-    mv, mc = merge_probe(bias(k_s), table_keys, table_vals,
-                         wrow.to(torch.int32), tile, window)
+    overflow = (need_end - wrow.to(torch.int64) * 128 > window).sum()
+    mv, mc = merge_probe(bias(k_s), table_keys, table_vals, wrow, plan.tile,
+                         window)
     if order == "sorted":
         carry = torch.cat([probe_vals, probe_vals.new_zeros(pad)])
         return k_s, carry[perm], mv, mc, overflow

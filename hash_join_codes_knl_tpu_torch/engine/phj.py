@@ -330,10 +330,12 @@ def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
     # third statistic: plan-optimization violations: wide tiles past
     # wide_cap, and (below) unique_build duplicates
     viol = overflow.new_zeros(())
+    # the probe's sorted chunks order the kernels' blocks, nothing else
+    chunks = plan.probe_chunks
     if wide is not None and impl == "merge_jnp":
-        mv, mc = probe(ohk, bhk, bval, wrow, tile, plan.window_wide)
+        mv, mc = probe(ohk, bhk, bval, wrow, tile, plan.window_wide, chunks)
     else:
-        mv, mc = probe(ohk, bhk, bval, wrow, tile, window)
+        mv, mc = probe(ohk, bhk, bval, wrow, tile, window, chunks)
     if wide is not None:
         tidx, wrow_c, wide_ovf = wide
         if impl != "merge_jnp":

@@ -38,9 +38,9 @@ _VP, _I64, _U32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
 _SIGNATURES = {
     "hjk_flat_to_rows": [_VP, _VP, _I64, _VP, _VP, _I64, _U32, _VP],
     "hjk_merge_probe_dense": [_VP, _I64, _VP, _VP, _I64, _VP, _I64, _I64,
-                              _VP, _VP, _VP],
+                              _VP, _VP, _I64, _INT, _INT, _INT, _I64, _VP],
     "hjk_merge_probe_gather": [_VP, _I64, _VP, _VP, _I64, _VP, _I64, _I64,
-                               _VP, _VP, _VP],
+                               _VP, _VP, _I64, _INT, _INT, _VP],
     "hjk_merge_probe_gather_indexed": [_VP, _I64, _VP, _VP, _I64, _VP, _VP,
                                        _I64, _I64, _I64, _VP, _VP, _VP],
     "hjk_probe_tiles": [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _VP, _VP,

@@ -12,24 +12,83 @@ start clamped into the build side as the JAX oracle's dynamic_slice
 clamps it.  Each probe gets the count of equal build slots and the
 maximum matched value (unsigned), or 0.  Keys are biased int32
 (utils/hashing.py); the null key never matches, on either side.  The
-dense sweep does not need a sorted window.
+dense probe does not need a sorted window.  ``chunks`` (the probe
+column's independently sorted runs of tiles, ``plan.probe_chunks``) only
+orders the kernels' blocks (``block_tiles``); no result depends on it.
 
-Kernel: ``csrc/merge_probe.cu``.  Bound on the H100: compares, tile x
-window per tile.  One block per tile stages the window through shared
-memory and every thread keeps eight probes and their accumulators in
-registers, so each staged slot is one broadcast read per eight compares.
+Kernel: ``csrc/merge_probe.cu``.  Bound on the H100: bytes (the probes
+and anchors read once, the union of the tiles' windows read once, both
+outputs written once).  The TPU kernel's all-pairs sweep does tile x
+window compares a tile; the function needs one lookup a probe.  So a
+block builds the tile probe's shared-memory hash table
+(``csrc/smem_table.cuh``) of a window and every probe of the tiles that
+share that window start looks its key up once.  A round of the table
+holds at most ``stage`` live slots and wider windows take more rounds
+(counts add, maxes combine); ``window_table_geometry`` sizes them.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..utils.hashing import BIAS
 from . import _build
+from .probe import ENTRY_BYTES, MAX_STAGE, MIN_STAGE
 
 _U32_MASK = 0xFFFFFFFF
 # bound on the plain version's (tiles x tile x window) compare block
 _PLAIN_BLOCK_ELEMS = 1 << 25
+# probe slots one block of K2 takes (whole tiles of one chunk, at least
+# one tile): tiles with a common window start then share one table
+BLOCK_PROBES = 8192
+
+
+class WindowTable(NamedTuple):
+    """K2's launch geometry (``window_table_geometry``)."""
+
+    stage: int  # live window slots one round of the table holds
+    entries: int  # table entries, a power of two >= 2 * stage
+    smem: int  # dynamic shared-memory bytes of the table
+    threads: int  # threads a block; a chunk of 4 slots a thread fits a round
+    tiles_per_block: int
+    rounds: int  # rounds of a window with every slot live
+
+
+def window_table_geometry(window: int, tile: int,
+                          n_tiles: int) -> WindowTable:
+    """K2's table and launch for `window`-slot windows and n_tiles tiles
+    of `tile` probes: the tile probe's rule (ops/probe.py
+    ``table_geometry``) with the window as the row.  ``stage`` is the
+    window rounded up to a power of two within [MIN_STAGE, MAX_STAGE];
+    the table has twice as many entries, so a walk always meets an empty
+    one.  A block takes BLOCK_PROBES // tile tiles (at least one)."""
+    if min(window, tile) < 1 or n_tiles < 0:
+        raise ValueError(f"window={window}, tile={tile}, n_tiles={n_tiles} "
+                         "must be positive")
+    stage = min(MAX_STAGE, max(MIN_STAGE, 1 << (window - 1).bit_length()))
+    entries = 2 * stage
+    threads = min(1024, stage // 4)
+    tiles_per_block = max(1, min(n_tiles, BLOCK_PROBES // tile))
+    return WindowTable(stage, entries, ENTRY_BYTES * entries, threads,
+                       tiles_per_block, -(-window // stage))
+
+
+def block_tiles(n_tiles: int, chunks: int, tiles_per_block: int):
+    """(first, end) tile of every block of the window probes' grid, as
+    int64 tensors: csrc/hjk.cuh ``block_tiles``.  Block b takes chunk b %
+    chunks (a chunk is ceil(n_tiles / chunks) tiles, the last ones may be
+    short or empty) and in it the (b // chunks)-th run of
+    tiles_per_block tiles, so tiles at one position of every chunk run
+    together."""
+    per_chunk = -(-n_tiles // chunks)
+    b = torch.arange(chunks * -(-per_chunk // tiles_per_block))
+    c = b % chunks
+    first = c * per_chunk + (b // chunks) * tiles_per_block
+    end = torch.minimum(first + tiles_per_block,
+                        ((c + 1) * per_chunk).clamp(max=n_tiles))
+    return first, torch.maximum(end, first)
 
 
 def check_probe_args(probe_hk, build_hk, build_val, wrow, tile: int,
@@ -61,9 +120,10 @@ def check_probe_args(probe_hk, build_hk, build_val, wrow, tile: int,
 
 
 def merge_probe_torch(probe_hk, build_hk, build_val, wrow, tile: int,
-                      window: int):
+                      window: int, chunks: int = 1):
     """Plain version of the window probes: every probe of a tile
-    against every slot of its window, in blocks of tiles."""
+    against every slot of its window, in blocks of tiles.  `chunks`
+    orders only the kernels' blocks, and is not used here."""
     check_probe_args(probe_hk, build_hk, build_val, wrow, tile, window)
     n_tiles = probe_hk.shape[0] // tile
     dev = probe_hk.device
@@ -89,7 +149,7 @@ def merge_probe_torch(probe_hk, build_hk, build_val, wrow, tile: int,
 
 
 def merge_probe(probe_hk, build_hk, build_val, wrow, tile: int,
-                window: int):
+                window: int, chunks: int = 1):
     """Dense window probe: (match_vals, match_cnts), int32 columns in the
     probe's (cap,) layout.  A CUDA tensor launches K2; a CPU tensor takes
     the plain version."""
@@ -99,9 +159,12 @@ def merge_probe(probe_hk, build_hk, build_val, wrow, tile: int,
     check_probe_args(probe_hk, build_hk, build_val, wrow, tile, window)
     mv = torch.empty_like(probe_hk)
     mc = torch.empty_like(probe_hk)
+    n_tiles = probe_hk.shape[0] // tile
+    geo = window_table_geometry(window, tile, n_tiles)
     _build.launch("hjk_merge_probe_dense", probe_hk.device, probe_hk,
                   probe_hk.shape[0], build_hk, build_val, build_hk.shape[0],
-                  wrow, tile, window, mv, mc)
+                  wrow, tile, window, mv, mc, max(1, chunks), geo.stage,
+                  geo.entries, geo.threads, geo.tiles_per_block)
     merge_probe.launches += 1
     return mv, mc
 

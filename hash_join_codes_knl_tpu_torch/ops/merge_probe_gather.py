@@ -1,4 +1,4 @@
-"""K3: the wide-window probe by binary search.
+"""K3: the wide-window probe on a window staged in shared memory.
 
 Counterpart of ``hash_join_codes_knl_tpu/ops/merge_probe_gather.py``
 (``merge_probe_gather``: ``window_probe_call`` with
@@ -6,19 +6,27 @@ Counterpart of ``hash_join_codes_knl_tpu/ops/merge_probe_gather.py``
 (ops/merge_probe.py), plus one precondition: the build side is sorted by
 (key, value).  The TPU kernel selected two 128-slot chunks by their
 boundaries, gathered them across lanes and counted the run from chunk
-arithmetic, all to avoid a gather it did not have.  Here each thread
-owns one probe and runs a lower-bound and an upper-bound binary search
-over its tile's window: count = hi - lo, and since equal-key runs are
-value-ascending the maximum matched value is val[hi - 1].  Both are
-exact for any M:N run inside the window, and the window-overflow
-statistic guarantees that every run a probe can match lies inside it.
-The select overflow of the TPU kernel's opportunistic selects has no
-counterpart: this kernel has one exact select.
+arithmetic, all to avoid a gather it did not have.  Here a probe's
+matches are the run [lo, hi) of its key in the sorted window: count =
+hi - lo, and since equal-key runs are value-ascending the maximum
+matched value is val[hi - 1].  Both are exact for any M:N run inside the
+window, and the window-overflow statistic guarantees that every run a
+probe can match lies inside it.  The select overflow of the TPU kernel's
+opportunistic selects has no counterpart: this kernel has one exact
+select.
 
-Kernel: ``csrc/merge_probe_gather.cu``.  Bound on the H100: memory
-latency, two chains of about log2(window) dependent loads per probe, all
-inside one tile's window (118 KB at the headline plan), which the
-tile's blocks share through L1 and L2.
+Kernel: ``csrc/merge_probe_gather.cu``.  Bound on the H100: bytes (the
+probes, the union of the windows' keys, one value per matched probe,
+both outputs).  A search chain of about log2(window) dependent loads
+from device memory would cost far more, so a block serves one tile and
+stages its window's keys in shared memory (``gather_geometry``: the
+gather band's widest window, 121 chunks, is one 62 KB piece), searches
+both bounds there and reads only val[hi - 1] from device memory.  Blocks
+go position by position over the probe's ``chunks`` sorted runs of tiles
+(``merge_probe.block_tiles``), so the 64 tiles of the headline plan that
+share a build range stage it from L2.  The probes need not be sorted
+within a tile: the result is exact either way, sorted probes only search
+faster.
 
 The plain version is the dense sweep's, ``merge_probe_torch``: the JAX
 package checks both kernels against one oracle too.
@@ -36,26 +44,53 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._build import SMEM_LIMIT
 from .merge_probe import check_probe_args, merge_probe_torch
 
-__all__ = ["merge_probe_gather", "merge_probe_gather_indexed",
-           "merge_probe_gather_indexed_torch", "merge_probe_torch"]
+__all__ = ["gather_geometry", "merge_probe_gather",
+           "merge_probe_gather_indexed", "merge_probe_gather_indexed_torch",
+           "merge_probe_torch"]
+
+# most window keys K3 stages at a time (64 KB): the gather band's widest
+# window (121 chunks, 15,488 keys) is one piece, and three blocks fit an
+# SM's shared memory.  Threads a block: 256 searched the headline's tiles
+# in 2.47 ms against 2.63 (512) and 3.06 (1024) on one H100 (PERF.md,
+# scripts/torch_sweep_window_probes.py)
+MAX_PIECE = 16384
+MAX_THREADS = 256
+assert 4 * MAX_PIECE <= SMEM_LIMIT
+
+
+def gather_geometry(window: int, tile: int) -> tuple[int, int, int]:
+    """(piece, shared-memory bytes, threads) of K3 for `window`-slot
+    windows and `tile`-probe tiles: the window is staged in pieces of at
+    most MAX_PIECE keys (a multiple of 128, like the window), and a block
+    has MAX_THREADS threads, or fewer for a tile of fewer probes."""
+    if window < 128 or window % 128 or tile < 1:
+        raise ValueError(f"window={window} must be a positive multiple of "
+                         f"128 and tile={tile} positive")
+    piece = min(window, MAX_PIECE)
+    threads = min(MAX_THREADS, -(-tile // 32) * 32)
+    return piece, 4 * piece, threads
 
 
 def merge_probe_gather(probe_hk, build_hk, build_val, wrow, tile: int,
-                       window: int):
+                       window: int, chunks: int = 1):
     """Wide-window probe: (match_vals, match_cnts), int32 columns in the
     probe's (cap,) layout.  Needs the build side sorted by (key, value).
-    A CUDA tensor launches K3; a CPU tensor takes the plain version."""
+    `chunks` (the probe's sorted runs of tiles) orders the kernel's
+    blocks only.  A CUDA tensor launches K3; a CPU tensor takes the plain
+    version."""
     if probe_hk.device.type == "cpu":
         return merge_probe_torch(probe_hk, build_hk, build_val, wrow, tile,
                                  window)
     check_probe_args(probe_hk, build_hk, build_val, wrow, tile, window)
     mv = torch.empty_like(probe_hk)
     mc = torch.empty_like(probe_hk)
+    piece, _, threads = gather_geometry(window, tile)
     _build.launch("hjk_merge_probe_gather", probe_hk.device, probe_hk,
                   probe_hk.shape[0], build_hk, build_val, build_hk.shape[0],
-                  wrow, tile, window, mv, mc)
+                  wrow, tile, window, mv, mc, max(1, chunks), piece, threads)
     merge_probe_gather.launches += 1
     return mv, mc
 

@@ -101,6 +101,179 @@ def test_dense_kernel_unsorted_windows(cuda):
     assert _equal(mp.merge_probe(o, b, v, wrow, 3072, 2560), want)
 
 
+def _probe_from(rng, pool, n, miss=0.2, null=0.1):
+    """n probe keys drawn from `pool`, with random misses and null keys."""
+    ok = pool[rng.integers(0, len(pool), n)].astype(np.uint32)
+    m = rng.random(n) < miss
+    ok[m] = rng.integers(1, 2**32, int(m.sum()), dtype=np.uint32)
+    ok[rng.random(n) < null] = 0
+    return ok
+
+
+def _k2_case(dev, case):
+    """K2's arguments for a named case: (probe, build keys, build values,
+    wrow, tile, window, chunks); unsorted M:N windows with null slots
+    unless the case says otherwise."""
+    rng = np.random.default_rng(len(case) * 7 + 1)
+    window, tile, n_tiles, chunks, null = 1024, 512, 24, 1, 0.4
+    if case.startswith("window_"):
+        window = int(case.split("_")[1])
+        tile = 128 if window == 128 else 512
+    elif case == "past_121_chunks":  # the dense fallback: three rounds
+        window, tile, n_tiles, null = 160 * 128, 128, 12, 0.0
+    elif case == "every_slot_live":
+        null = 0.0
+    elif case == "chunks_ragged":
+        n_tiles, chunks = 21, 8
+    rows = max(3 * window // 128, 40)
+    pool = np.unique(rng.integers(1, 2**32, window, dtype=np.uint32))
+    bk = pool[rng.integers(0, len(pool), rows * 128)]  # M:N
+    bk[rng.random(len(bk)) < null] = 0
+    bv = rng.integers(0, 2**32, len(bk), dtype=np.uint32)
+    if case == "runs_cut_at_edge":
+        # sorted runs of 1 to 400 equal keys: the 128-slot window edges
+        # cut through them
+        bk = np.repeat(np.sort(pool), rng.integers(1, 400, len(pool)))
+        bk = bk[: rows * 128]
+    ok = _probe_from(rng, pool, n_tiles * tile)
+    if case == "all_null_tiles":
+        ok[: 3 * tile] = 0
+        ok[-tile:] = 0
+        bk[: 2 * window] = 0  # and windows with no live slot
+    # sorted anchors with repeats: several tiles share a window start
+    wrow = np.sort(rng.integers(0, rows - window // 128 + 1, n_tiles))
+    wrow[3:7] = wrow[3]
+    if case == "chunks_ragged":
+        wrow = rng.permutation(wrow)  # anchors in no order
+    return (bias(u32_to_device(ok, dev)), bias(u32_to_device(bk, dev)),
+            u32_to_device(bv, dev),
+            torch.from_numpy(wrow.astype(np.int32)).to(dev), tile, window,
+            chunks)
+
+
+@pytest.mark.parametrize("case", [
+    "window_128", "window_896", "window_1024", "window_1280",
+    "past_121_chunks", "every_slot_live", "runs_cut_at_edge",
+    "all_null_tiles", "chunks_ragged", "unaligned"])
+def test_dense_kernel_hash_table(cuda, case):
+    """K2's shared-memory table of each window against the plain sweep:
+    the widths the engine sends (NPJ's 896, the narrow merge windows, the
+    dense fallback past 121 chunks in several rounds), windows with every
+    slot live, M:N runs cut at the window edge, all-null tiles and
+    windows, anchors in no order over a ragged chunk count, and views off
+    a 16-byte boundary."""
+    o, b, v, wrow, tile, window, chunks = _k2_case(
+        cuda, "every_slot_live" if case == "unaligned" else case)
+    if case == "unaligned":
+        o, b, v = (torch.cat([x[:1], x])[1:] for x in (o, b[:-1], v[:-1]))
+        assert all(x.data_ptr() % 16 for x in (o, b, v))
+    want = mp.merge_probe_torch(o, b, v, wrow, tile, window)
+    assert int(want[1].sum()) > 0
+    if case == "past_121_chunks":
+        assert mp.window_table_geometry(window, tile, 12).rounds == 3
+    if case in ("runs_cut_at_edge", "every_slot_live"):
+        assert int(want[1].max()) > 1
+    before = mp.merge_probe.launches
+    assert _equal(mp.merge_probe(o, b, v, wrow, tile, window, chunks), want)
+    assert mp.merge_probe.launches == before + 1
+
+
+@pytest.mark.parametrize("dups", [False, True])
+def test_dense_kernel_on_npj_table(cuda, dups):
+    """K2 on a parked NPJ table from npj_build (null-interleaved, windows
+    anchored by home bucket), at the auto window and at max_window."""
+    rng = np.random.default_rng(91 + dups)
+    n = 30000
+    ik = rng.integers(1, 2**32, n, dtype=np.uint32)
+    if dups:
+        ik = ik[rng.integers(0, 5000, n)]
+    plan = npj.plan_npj(n)
+    tk, tv, ovf, max_disp = npj.npj_build(
+        u32_to_device(ik, cuda),
+        u32_to_device(rng.integers(0, 2**32, n, dtype=np.uint32), cuda),
+        plan)
+    assert int(ovf) == 0
+    ok = _probe_from(rng, ik, 150000)
+    for window in (plan.auto_window(len(ok), int(max_disp) + 128),
+                   plan.max_window):
+        k_s, _, wrow, _, window = npj.sorted_probe_layout(
+            u32_to_device(ok, cuda), plan, tk.shape[0], window)
+        args = (bias(k_s), tk, tv, wrow, plan.tile, window)
+        want = mp.merge_probe_torch(*args)
+        assert int(want[1].sum()) > 0
+        assert _equal(mp.merge_probe(*args), want)
+
+
+def _k3_case(dev, case):
+    """K3's arguments for a named case: a (key, value)-sorted M:N build
+    side with pads in front, probes sorted within their chunk, anchors
+    from the engine's window rows: (probe, keys, values, wrow, tile,
+    window, chunks)."""
+    rng = np.random.default_rng(len(case) * 11 + 3)
+    window, tile, rows, n_tiles, chunks = 121 * 128, 1024, 160, 16, 1
+    if case == "chunks_64_ragged":
+        tile, rows, n_tiles, chunks = 256, 200, 64 * 3 - 2, 64
+    elif case == "two_pieces":  # a run across the staged pieces' boundary
+        window, tile, rows, n_tiles = 160 * 128, 512, 200, 8
+    pool = np.unique(rng.integers(1, 2**32, 8000, dtype=np.uint32))
+    bk = np.sort(pool[rng.integers(0, len(pool), rows * 128)])
+    bk[:300] = 0  # build pads
+    if case == "two_pieces":
+        bk[15000:18000] = bk[15000]
+    bv = rng.integers(0, 2**32, len(bk), dtype=np.uint32)
+    order = np.lexsort((bv, bk))
+    bk, bv = bk[order], bv[order]
+    ok = _probe_from(rng, bk[bk != 0], n_tiles * tile)
+    if case == "two_pieces":
+        ok[::3] = bk[16000]
+    if case == "all_miss":
+        ok = np.setdiff1d(rng.integers(1, 2**32, 2 * n_tiles * tile,
+                                       dtype=np.uint32), bk)[: n_tiles * tile]
+        ok = rng.permutation(ok)
+        ok[: tile] = 0xFFFFFFFF  # past the last build key
+    per_chunk = -(-n_tiles // chunks) * tile
+    for c0 in range(0, len(ok), per_chunk):
+        ok[c0 : c0 + per_chunk] = np.sort(ok[c0 : c0 + per_chunk])
+    o, b = bias(u32_to_device(ok, dev)), bias(u32_to_device(bk, dev))
+    wrow = phj._window_rows(b, o, tile, rows)[0].clamp(
+        0, rows - window // 128).to(torch.int32)
+    if case == "two_pieces":
+        wrow[:] = 0  # every window holds the run at 15000..18000
+    if case == "unsorted":
+        o = o.view(n_tiles, tile)[:, torch.randperm(
+            tile, generator=torch.Generator().manual_seed(5)).to(dev)]
+        o = o.reshape(-1).contiguous()
+    return o, b, u32_to_device(bv, dev), wrow, tile, window, chunks
+
+
+@pytest.mark.parametrize("case", ["window_15488", "chunks_64_ragged",
+                                  "all_miss", "unsorted", "two_pieces",
+                                  "unaligned"])
+def test_gather_kernel_staged_window(cuda, case):
+    """K3's searches in the staged window against the plain sweep: the
+    gather band's widest window (121 chunks), 64 chunks with a ragged last
+    chunk, tiles whose probes all miss, probes in no order within their
+    tiles, a window in two pieces with a run across their boundary, and
+    views off a 16-byte boundary (4-byte copies)."""
+    o, b, v, wrow, tile, window, chunks = _k3_case(
+        cuda, "window_15488" if case == "unaligned" else case)
+    if case == "unaligned":
+        o, b, v = (torch.cat([x[:1], x])[1:] for x in (o, b[:-1], v[:-1]))
+        assert all(x.data_ptr() % 16 for x in (o, b, v))
+    want = mp.merge_probe_torch(o, b, v, wrow, tile, window)
+    if case == "all_miss":
+        assert int(want[1].sum()) == 0
+    else:
+        assert int(want[1].sum()) > 0
+    if case == "two_pieces":
+        assert mg.gather_geometry(window, tile)[0] < window
+        assert int(want[1].max()) >= 3000
+    before = mg.merge_probe_gather.launches
+    assert _equal(mg.merge_probe_gather(o, b, v, wrow, tile, window, chunks),
+                  want)
+    assert mg.merge_probe_gather.launches == before + 1
+
+
 def _indexed_inputs(dev, tile, n_tiles, window, seed):
     """A sorted M:N build side, key-sorted probe tiles and anchors from
     the engine's own window rows, clamped for `window`."""
