@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (hash_join_codes_knl_tpu_torch) on
 one NVIDIA GPU: build the kernels, hold each against its plain PyTorch
-version, then drive the three paths of the port.  The merge path of
+version (the indexed wide-window probe K4 also on a headline-sized tile
+list, against the wide-window probe K3 over all tiles), then drive the
+three paths of the port.  The merge path of
 join(): digests against the numpy oracle, the 16M x 256M headline join,
 its Zipf z=1.0 twin and the two-class window geometry on the same
 columns.  The padded path (sort-mode and radix-partitioned PHJ): digests
@@ -124,8 +126,11 @@ def _ptxas_report(text: str) -> list:
     for line in text.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
-            m = re.search(r"([a-z_]+_kernel)E", line)
-            kernel = m.group(1) if m else line.split("'")[1]
+            # a kernel templated on one bool is named kernel<false|true>
+            m = re.search(r"([a-z_]+_kernel)(ILb([01])E)?E", line)
+            kernel = line.split("'")[1] if not m else m.group(1) + (
+                "" if m.group(3) is None
+                else ("<true>" if m.group(3) == "1" else "<false>"))
         elif "spill" in line:
             spills = line
         elif "registers" in line and kernel:
@@ -160,6 +165,31 @@ def _median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _queued_ms(fn, calls: int = 20) -> float:
+    """Device time of one fn() in ms: `calls` calls queued behind a kernel
+    that sleeps 2e8 cycles (about 0.1 s), so the host work of every call
+    is done before the device reaches them and the CUDA events around
+    them time the device alone; their time over the count.  Raises if the
+    host took longer than the sleep.  For a call whose kernel is shorter
+    than the wrapper's host work, where _median_ms times the host too."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(200_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ev[2].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        raise AssertionError(f"{calls} calls took {host_ms:.3f} ms on the "
+                             f"host, longer than the device's sleep")
+    return ev[1].elapsed_time(ev[2]) / calls
 
 
 def _max_abs_err(got, want) -> int:
@@ -312,7 +342,7 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
            f"{plan_s.probe_chunks} chunks ({geo}); kernel {ms:.4f} ms, "
            f"plain {plain_ms:.4f} ms")
 
-    # K3: the binary-search probe at the headline plan (tile 3072, window
+    # K3: the staged-window search at the headline plan (tile 3072, window
     # 15104).  The plain version's compares scale with tile x window, so
     # kernel and plain are timed on 256 tiles spread over every chunk; the
     # kernel also runs in full and is held against the dense kernel there.
@@ -335,6 +365,11 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
                  mp.merge_probe(*full))
     bound_full = _search_bound(ohk, wrow, window, bhk.shape[0], got[1])
     ms_full = _median_ms(lambda: mg.merge_probe_gather(*full), 10)
+    # K4 where it has work: a headline-sized tile list, checked against
+    # K3's output over all tiles
+    out["k4_headline"] = _kernel_indexed_headline(ohk, bhk, bval, wrow, tile,
+                                                  window, got,
+                                                  plan_h.probe_chunks)
     # K2 on the same tiles: data for the gather band's dispatch constants
     ms_dense = _median_ms(lambda: mp.merge_probe(*full), 5)
     out["merge_probe"].update(
@@ -357,6 +392,66 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
     torch.cuda.empty_cache()
     out["radix_partition"] = _kernel_radix_partition(cols_h)
     return out
+
+
+# K4's headline-sized list takes every 16th tile of the merge layout:
+# the engine's default wide_cap, tiles // 16 (engine/phj.py)
+K4_HEADLINE_STRIDE = 16
+
+
+def _kernel_indexed_headline(ohk, bhk, bval, wrow, tile: int, window: int,
+                             k3, chunks: int) -> dict:
+    """K4 on a headline-sized list: every K4_HEADLINE_STRIDE-th tile of
+    the 16M x 256M merge layout, in ascending order, at the layout's own
+    window from anchors wrow[t] (already clamped for it), its blocks over
+    the plan's `chunks` as the engine calls it.  Held exactly against its
+    plain version on 256 of the entries, and on every listed tile against
+    k3, K3's output over all tiles at the same window and anchors (the
+    same function); then timed with CUDA events (median of 10) and as
+    calls queued behind a sleeping kernel (_queued_ms), beside its
+    bound.  Runs outside the counted path
+    runs."""
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+
+    n_tiles = ohk.shape[0] // tile
+    tidx = torch.arange(0, n_tiles, K4_HEADLINE_STRIDE, dtype=torch.int32,
+                        device=ohk.device)
+    ids = tidx.long()
+    wc = wrow[ids].contiguous()
+    n = tidx.shape[0]
+    sel = torch.linspace(0, n - 1, 256, device=ohk.device).long()
+
+    def args(ti, anchors):  # onto fresh zero outputs
+        return (ohk, bhk, bval, anchors, ti, torch.zeros_like(ohk),
+                torch.zeros_like(ohk), tile, window)
+
+    sub = (tidx[sel].contiguous(), wc[sel].contiguous())
+    got = mg.merge_probe_gather_indexed(*args(*sub), chunks)
+    want = mg.merge_probe_gather_indexed_torch(*args(*sub))
+    _check_equal(f"merge_probe_gather_indexed, 256 of the {n}-entry "
+                 f"headline list", got, want)
+    err = _max_abs_err(got, want)
+    del got, want
+    full = args(tidx, wc)
+    mv, mc = mg.merge_probe_gather_indexed(*full, chunks)
+    _check_equal(f"merge_probe_gather_indexed vs merge_probe_gather on all "
+                 f"{n} listed headline tiles",
+                 [o.view(n_tiles, tile)[ids] for o in (mv, mc)],
+                 [o.view(n_tiles, tile)[ids] for o in k3])
+    bound = _search_bound(ohk.view(n_tiles, tile)[ids], wc, window,
+                          bhk.shape[0], mc.view(n_tiles, tile)[ids], 8)
+    ms = _median_ms(lambda: mg.merge_probe_gather_indexed(*full, chunks), 10)
+    queued = _queued_ms(lambda: mg.merge_probe_gather_indexed(*full, chunks))
+    _print(f"phase kernels: merge_probe_gather_indexed equal to plain on "
+           f"256 of {n} entries (every {K4_HEADLINE_STRIDE}th of {n_tiles} "
+           f"headline tiles, tile {tile}, window {window}, {chunks} chunks) "
+           f"and to merge_probe_gather on all {n} listed tiles; kernel "
+           f"{ms:.4f} ms on the whole list ({queued:.4f} ms queued), bound "
+           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return dict(max_abs_err_headline=err, ms_headline_list=ms,
+                ms_headline_list_queued=queued,
+                bound_ms_headline_list=bound["bound_ms"],
+                entries_headline_list=n)
 
 
 def _spread_tiles(pk, tpid, tile: int, count: int):
@@ -838,7 +933,10 @@ def _kernel_indexed(dev, cols, two, n_wide) -> dict:
     def args(mv, mc):
         return (ohk, bhk, bval, wc, ti, mv, mc, tile, wide)
 
-    got = mg.merge_probe_gather_indexed(*args(mv0.clone(), mc0.clone()))
+    def k4(*a):  # the blocks over the plan's chunks, as the engine runs it
+        return mg.merge_probe_gather_indexed(*a, two.probe_chunks)
+
+    got = k4(*args(mv0.clone(), mc0.clone()))
     want = mg.merge_probe_gather_indexed_torch(*args(mv0.clone(),
                                                      mc0.clone()))
     _check_equal("merge_probe_gather_indexed, 256 entries", got, want)
@@ -852,19 +950,24 @@ def _kernel_indexed(dev, cols, two, n_wide) -> dict:
     bound = listed_bound(ti, wc, got[1])
     del got, want
     mv, mc = mv0.clone(), mc0.clone()
-    ms = _median_ms(lambda: mg.merge_probe_gather_indexed(*args(mv, mc)), 20)
+    ms = _median_ms(lambda: k4(*args(mv, mc)), 20)
+    queued = _queued_ms(lambda: k4(*args(mv, mc)))
     plain_ms = _median_ms(
         lambda: mg.merge_probe_gather_indexed_torch(*args(mv, mc)), 3)
     full = (ohk, bhk, bval, wrow_c, tidx, mv, mc, tile, wide)
-    ms_full = _median_ms(lambda: mg.merge_probe_gather_indexed(*full), 10)
+    ms_full = _median_ms(lambda: k4(*full), 10)
+    queued_full = _queued_ms(lambda: k4(*full))
     bound_full = listed_bound(tidx, wrow_c, mc)["bound_ms"]
     pads = int((sel >= n_wide).sum())  # wide tiles come first
     _print(f"phase kernels: merge_probe_gather_indexed equal to plain on "
            f"256 entries ({pads} narrow pads, 8 repeats) of the {n}-entry "
            f"tile list of the 16M x 256M Zipf two-class layout, tile {tile}, "
-           f"wide window {wide}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-           f" (256 entries); kernel {ms_full:.4f} ms on the whole wide pass")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_full=ms_full,
+           f"wide window {wide}, {two.probe_chunks} chunks; kernel "
+           f"{ms:.4f} ms ({queued:.4f} ms queued), plain {plain_ms:.4f} ms "
+           f"(256 entries); kernel {ms_full:.4f} ms ({queued_full:.4f} ms "
+           f"queued) on the whole wide pass")
+    return dict(max_abs_err=err, ms=ms, ms_queued=queued, plain_ms=plain_ms,
+                ms_full=ms_full, ms_full_queued=queued_full,
                 bound_ms_full=bound_full, **bound,
                 shape=f"256 entries of {n}, tile={tile} window={wide}")
 
@@ -1284,8 +1387,11 @@ def main() -> None:
     merge = _launches()
     _print(f"launches, merge path: {merge}")
     torch.cuda.empty_cache()
-    stats["merge_probe_gather_indexed"] = _kernel_indexed(dev, cols_z, two,
-                                                          n_wide)
+    k4 = _kernel_indexed(dev, cols_z, two, n_wide)
+    head = stats.pop("k4_headline")
+    k4["max_abs_err"] = max(k4["max_abs_err"],
+                            head.pop("max_abs_err_headline"))
+    stats["merge_probe_gather_indexed"] = {**k4, **head}
     _stamp("K4's check")
     del cols_z
     torch.cuda.empty_cache()

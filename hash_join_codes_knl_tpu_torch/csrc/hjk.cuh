@@ -56,6 +56,23 @@ __device__ __forceinline__ void block_tiles(int64_t b, int64_t n_tiles,
   *t1 = end > first ? end : first;
 }
 
+// Entry *j of block b over a list of n entries (K4's tile list): the
+// list is split into `chunks` runs of balanced length (run c is
+// [ceil(c * n / chunks), ceil((c + 1) * n / chunks))) and blocks go
+// position by position over the runs, as block_tiles goes over the
+// probe's chunks: block b takes run b % chunks, entry b / chunks of it.
+// A list of tiles in ascending order spread evenly over the probe's
+// chunks (as the engine's lists are) then runs the entries of one chunk
+// position together, and their windows come from L2.  The grid is
+// block_count(n, chunks, 1); false for a block past its run's end.
+// Scheduling only: no result depends on it.
+__device__ __forceinline__ bool block_entry(int64_t b, int64_t n,
+                                            int64_t chunks, int64_t* j) {
+  const int64_t c = b % chunks;
+  *j = (c * n + chunks - 1) / chunks + b / chunks;
+  return *j < ((c + 1) * n + chunks - 1) / chunks;
+}
+
 // grid size of block_tiles' order
 inline int64_t block_count(int64_t n_tiles, int64_t chunks,
                            int64_t per_block) {

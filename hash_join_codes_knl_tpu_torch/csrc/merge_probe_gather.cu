@@ -1,5 +1,5 @@
-// K3: the wide-window probe on a window staged in shared memory, and
-// K4, its indexed pass by binary search.
+// K3, the wide-window probe, and K4, its indexed pass: one kernel body
+// that searches a window staged in shared memory.
 //
 // K3 replaces the TPU kernel merge_probe_gather (hash_join_codes_knl_tpu/
 // ops/merge_probe_gather.py: window_probe_call with
@@ -12,6 +12,14 @@
 // the max matched value is val[hi - 1].  Both are exact for any M:N run
 // inside the window (runs cut by the window edge give exactly what the
 // dense sweep gives for the same window).
+//
+// K4 replaces window_probe_call_indexed (hash_join_codes_knl_tpu/ops/
+// merge_probe_pallas.py, via merge_probe_gather_indexed): the wide pass
+// of the two-class window geometry.  It is the same function over the
+// tiles listed in tile_idx, entry j at anchor wrow_c[j], written in place
+// over the first pass's (mv, mc); every other slot keeps its value.  The
+// TPU kernel took the list as a scalar-prefetch operand and wrote through
+// an aliased, index-mapped output block.
 //
 // Bound: bytes (the probes, the union of the windows' keys, one value per
 // matched probe, both outputs).  The searches are what stand in the way:
@@ -30,52 +38,24 @@
 // matched probe is read from device memory.  A probe outside [first key,
 // last key] of a piece matches nothing there.  With several pieces, the
 // first writes the outputs and later ones add their counts and, on a
-// hit, take their later (larger) value.  Blocks go
-// position by position over the probe's sorted chunks (hjk::block_tiles),
-// so the tiles that share a build range stage it from L2.  The probes
-// need not be sorted within a tile; sorted ones search faster.
+// hit, take their later (larger) value.  The probes need not be sorted
+// within a tile; sorted ones search faster.
 //
-// K4 replaces window_probe_call_indexed (hash_join_codes_knl_tpu/ops/
-// merge_probe_pallas.py, via merge_probe_gather_indexed): the wide pass
-// of the two-class window geometry.  It probes only the tiles listed in
-// tile_idx, entry j at anchor wrow_c[j], and overwrites their slots of
-// the first pass's (mv, mc) in place; every other slot keeps its value.
-// The TPU kernel took the list as a scalar-prefetch operand and wrote
-// through an aliased, index-mapped output block; here each thread reads
-// its own list entry, and skips an entry outside the probe's tiles.  A
-// list may repeat a tile: its entries carry the same anchor, so both
-// write the same values.  Bound: memory latency, two chains of about
-// log2(window) dependent loads a probe from L1/L2 (window_search); one
-// thread per probe, 256 threads per block, so a block's probes share one
-// tile's window.
+// The two differ only in which tile a block takes and where its anchor
+// comes from.  K3's blocks go position by position over the probe's
+// sorted chunks (hjk::block_tiles), so the tiles that share a build range
+// stage it from L2.  K4's blocks go position by position over `chunks`
+// runs of the list (hjk::block_entry), one block per entry: for the
+// engine's ascending lists, the entries of one chunk position run
+// together as K3's tiles do.  An entry outside the probe's tiles makes
+// the whole block return before it stages anything, and writes
+// nothing.  K4's window is one piece (the wrapper refuses a wider one, as
+// the JAX wrapper does), so every listed slot takes one plain store of
+// its (count, value): an entry that repeats a tile carries the same
+// anchor, and its two blocks store the same values.
 #include "hjk.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// count of build slots equal to probe p in [start, start + window), and
-// the max matched value (the build side is (key, value)-sorted)
-__device__ __forceinline__ void window_search(
-    const int32_t* __restrict__ bhk, const uint32_t* __restrict__ bval,
-    int64_t start, int64_t window, int32_t p, int32_t* count,
-    uint32_t* value) {
-  // lower bound: first slot of the window whose key is >= p
-  int64_t a = start, b = start + window;
-  while (a < b) {
-    const int64_t m = (a + b) >> 1;
-    if (__ldg(bhk + m) < p) a = m + 1; else b = m;
-  }
-  const int64_t lo = a;
-  // upper bound: first slot whose key is > p, searched from lo
-  b = start + window;
-  while (a < b) {
-    const int64_t m = (a + b) >> 1;
-    if (__ldg(bhk + m) <= p) a = m + 1; else b = m;
-  }
-  *count = static_cast<int32_t>(a - lo);
-  *value = *count > 0 ? __ldg(bval + a - 1) : 0u;
-}
 
 __device__ __forceinline__ void cp_async16(int32_t* dst, const int32_t* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -119,19 +99,32 @@ __device__ __forceinline__ int run_end(const int32_t* s_key, int len, int lo,
 // kGroup of each are in flight at once
 constexpr int kGroup = 4;
 
+// kIndexed = false: K3, block b takes tile t = block_tiles(b) at anchor
+// wrow[t]; true: K4, block b takes list entry j = block_entry(b) of the
+// n_idx in tile_idx, tile tile_idx[j] at anchor wrow[j]
+template <bool kIndexed>
 __global__ void __launch_bounds__(1024)
 merge_probe_gather_kernel(const int32_t* __restrict__ probe, int64_t n_tiles,
                           int64_t tile, int64_t chunks,
-                          const int32_t* __restrict__ bhk,
+                          const int32_t* __restrict__ tile_idx,
+                          int64_t n_idx, const int32_t* __restrict__ bhk,
                           const uint32_t* __restrict__ bval, int64_t n_build,
                           const int32_t* __restrict__ wrow, int64_t window,
                           int piece, uint32_t* __restrict__ mv,
                           int32_t* __restrict__ mc) {
   extern __shared__ int32_t s_key[];
-  int64_t t, t_end;
-  hjk::block_tiles(blockIdx.x, n_tiles, chunks, 1, &t, &t_end);
-  if (t >= t_end) return;
-  const int64_t start = hjk::window_start(wrow, t, window, n_build);
+  int64_t t, anchor;
+  if constexpr (kIndexed) {
+    if (!hjk::block_entry(blockIdx.x, n_idx, chunks, &anchor)) return;
+    t = tile_idx[anchor];
+    if (t < 0 || t >= n_tiles) return;  // an id past the probe: no write
+  } else {
+    int64_t t_end;
+    hjk::block_tiles(blockIdx.x, n_tiles, chunks, 1, &t, &t_end);
+    if (t >= t_end) return;
+    anchor = t;
+  }
+  const int64_t start = hjk::window_start(wrow, anchor, window, n_build);
   const int64_t base = t * tile;
   const int64_t step = static_cast<int64_t>(kGroup) * blockDim.x;
   // the window starts on a multiple of 4 keys when n_build is one
@@ -207,28 +200,39 @@ merge_probe_gather_kernel(const int32_t* __restrict__ probe, int64_t n_tiles,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-merge_probe_gather_indexed_kernel(
-    const int32_t* __restrict__ probe, const int32_t* __restrict__ bhk,
-    const uint32_t* __restrict__ bval, int64_t n_build,
-    const int32_t* __restrict__ wrow_c, const int32_t* __restrict__ tile_idx,
-    int64_t total, int64_t n_tiles, int64_t tile, int64_t window,
-    uint32_t* __restrict__ mv, int32_t* __restrict__ mc) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int64_t j = i / tile;  // entry of the compact tile list
-  const int64_t t = tile_idx[j];
-  if (t < 0 || t >= n_tiles) return;  // an id past the probe: no write
-  const int64_t slot = t * tile + i % tile;
-  const int32_t p = probe[slot];
-  int32_t count = 0;
-  uint32_t value = 0u;
-  if (p != hjk::kNullKey) {
-    window_search(bhk, bval, hjk::window_start(wrow_c, j, window, n_build),
-                  window, p, &count, &value);
+// the checks and the launch of both entry points: n_blocks blocks of
+// `threads`, `piece` window keys of shared memory each
+template <bool kIndexed>
+int launch(const void* probe, int64_t cap, const void* tile_idx,
+           int64_t n_idx, int64_t n_blocks, const void* bhk, const void* bval,
+           int64_t n_build, const void* wrow, int64_t tile, int64_t window,
+           void* mv, void* mc, int64_t chunks, int piece, int threads,
+           void* stream) {
+  const int64_t smem = 4 * static_cast<int64_t>(piece);
+  if (piece < 128 || piece % 128 || smem > hjk::kMaxSmem || threads < 32 ||
+      threads > 1024 || threads % 32 || tile < 1 || window < 1 ||
+      window % 128 || window > n_build || chunks < 1 ||
+      (kIndexed && window > piece)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  mc[slot] = count;
-  mv[slot] = value;
+  const int64_t n_tiles = cap / tile;
+  if (n_tiles <= 0 || n_blocks <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_probe_gather_kernel<kIndexed>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_probe_gather_kernel<kIndexed>
+      <<<static_cast<unsigned>(n_blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(probe), n_tiles, tile, chunks,
+          static_cast<const int32_t*>(tile_idx), n_idx,
+          static_cast<const int32_t*>(bhk),
+          static_cast<const uint32_t*>(bval), n_build,
+          static_cast<const int32_t*>(wrow), window, piece,
+          static_cast<uint32_t*>(mv), static_cast<int32_t*>(mc));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -241,44 +245,25 @@ HJK_API int hjk_merge_probe_gather(const void* probe, int64_t cap,
                                    int64_t tile, int64_t window, void* mv,
                                    void* mc, int64_t chunks, int piece,
                                    int threads, void* stream) {
-  const int64_t smem = 4 * static_cast<int64_t>(piece);
-  if (piece < 128 || piece % 128 || smem > hjk::kMaxSmem || threads < 32 ||
-      threads > 1024 || threads % 32 || tile < 1 || window < 1 ||
-      window % 128 || window > n_build || chunks < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t n_tiles = cap / tile;
-  if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_probe_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = hjk::block_count(n_tiles, chunks, 1);
-  merge_probe_gather_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(probe), n_tiles, tile, chunks,
-      static_cast<const int32_t*>(bhk), static_cast<const uint32_t*>(bval),
-      n_build, static_cast<const int32_t*>(wrow), window, piece,
-      static_cast<uint32_t*>(mv), static_cast<int32_t*>(mc));
-  return static_cast<int>(cudaGetLastError());
+  const int64_t blocks =
+      chunks < 1 || tile < 1 ? 0 : hjk::block_count(cap / tile, chunks, 1);
+  return launch<false>(probe, cap, nullptr, 0, blocks, bhk, bval, n_build,
+                       wrow, tile, window, mv, mc, chunks, piece, threads,
+                       stream);
 }
 
-// the indexed pass: n_idx list entries of `tile` slots each, written in
-// place into mv and mc (the first pass's outputs, cap slots like probe);
-// an entry outside [0, cap / tile) is skipped
+// the indexed pass: one block for each of the n_idx list entries, in
+// block_entry's order over `chunks` runs of the list, written in place
+// into mv and mc (the first pass's outputs, cap slots like probe); an
+// entry outside [0, cap / tile) is skipped.  The window must be one piece.
 HJK_API int hjk_merge_probe_gather_indexed(
     const void* probe, int64_t cap, const void* bhk, const void* bval,
     int64_t n_build, const void* wrow_c, const void* tile_idx, int64_t n_idx,
-    int64_t tile, int64_t window, void* mv, void* mc, void* stream) {
-  const int64_t total = n_idx * tile;
-  if (total <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  merge_probe_gather_indexed_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                                      0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(probe), static_cast<const int32_t*>(bhk),
-      static_cast<const uint32_t*>(bval), n_build,
-      static_cast<const int32_t*>(wrow_c),
-      static_cast<const int32_t*>(tile_idx), total, cap / tile, tile, window,
-      static_cast<uint32_t*>(mv), static_cast<int32_t*>(mc));
-  return static_cast<int>(cudaGetLastError());
+    int64_t tile, int64_t window, void* mv, void* mc, int64_t chunks,
+    int piece, int threads, void* stream) {
+  const int64_t blocks =
+      chunks < 1 || n_idx < 1 ? 0 : hjk::block_count(n_idx, chunks, 1);
+  return launch<true>(probe, cap, tile_idx, n_idx, blocks, bhk, bval,
+                      n_build, wrow_c, tile, window, mv, mc, chunks, piece,
+                      threads, stream);
 }

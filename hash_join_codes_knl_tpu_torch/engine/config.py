@@ -32,9 +32,9 @@ class JoinPlan:
     # (multi-pass radix partitioner)
     partition_impl: str = "sort"
     # merge modes: "merge" (sorted-window probe; resolves to a kernel by
-    # window width) | "merge_pallas" (dense sweep kernel) |
-    # "merge_gather" (binary-search kernel) | "merge_jnp" (plain torch,
-    # for tests).  Padded modes: "auto" and "pallas" (the tile probe:
+    # window width) | "merge_pallas" (K2, the window hash table) |
+    # "merge_gather" (K3, the staged-window search) | "merge_jnp" (plain
+    # torch, for tests).  Padded modes: "auto" and "pallas" (the tile probe:
     # its kernel on a CUDA tensor, its plain version on a CPU tensor) |
     # "jnp" (always the plain version, with the table-count mask; for
     # tests)

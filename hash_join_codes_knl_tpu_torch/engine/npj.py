@@ -291,9 +291,9 @@ def npj_join(inner_keys, inner_vals, outer_keys, outer_vals,
     if wovf != 0:
         raise RuntimeError(
             "sorted-probe window overflow persists at the widest window "
-            "and the smallest tile: tile spans exceed the dense sweep's "
-            "range (very few probes against a large table); use the PHJ "
-            "merge engine for this shape, or raise the load factor"
+            "and the smallest tile: tile spans exceed max_window (very few "
+            "probes against a large table); use the PHJ merge engine for "
+            "this shape, or raise the load factor"
         )
     final = dataclasses.replace(plan, window=window)
     if order == "sorted":

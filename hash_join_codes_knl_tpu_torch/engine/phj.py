@@ -17,11 +17,13 @@ Merge mode: both relations are ordered by the scrambled key, the build
 side by one sort, the probe side as ``probe_chunks`` independently
 sorted chunks.  Each probe tile's matches then lie in one contiguous
 build window, located by a coarse searchsorted, and a window probe
-kernel (ops/merge_probe.py dense, ops/merge_probe_gather.py binary
-search) finds every probe's match count and maximum matched value.  A
-window too narrow for some tile is counted, never silent, and ``join``
-re-plans from the measured span.  The padded modes are not re-planned:
-their overflow raises.
+kernel finds every probe's match count and maximum matched value: K2
+(ops/merge_probe.py) builds a shared-memory hash table of each window,
+in rounds, at any width; K3 and K4 (ops/merge_probe_gather.py) search
+the sorted window staged in shared memory.  A window too narrow for
+some tile is counted, never silent, and ``join`` re-plans from the
+measured span.  The padded modes are not re-planned: their overflow
+raises.
 
 Key domain (utils/hashing.py): on the device every key is a biased
 scrambled key, ``bias(key * factor mod 2^32)`` in an int32 tensor, and
@@ -259,7 +261,8 @@ def _merge_windows(bhk, ohk, tile: int, window: int, rows_total: int,
 def _check_explicit_window(plan: JoinPlan, tile: int, window: int) -> None:
     """Refuse an explicit window past the ceiling of the kernel it
     resolves to (_merge_impl's rule), with the JAX package's caps, and
-    warn when a wide window falls through to the dense sweep."""
+    warn when a wide window falls through to the window hash table
+    (K2)."""
     rows = max(1, tile // 128)
     w_chunks = -(-window // 128)
     forced = plan.probe_impl
@@ -282,25 +285,27 @@ def _check_explicit_window(plan: JoinPlan, tile: int, window: int) -> None:
     cap = (DENSE_ROWCHUNK_BUDGET // rows) * 128
     if window > cap:
         raise ValueError(
-            f"window={window} resolves to the DENSE sweep and exceeds its "
-            f"ceiling {cap} at tile {tile} ({DENSE_ROWCHUNK_BUDGET} "
-            "rowchunks): shrink the tile or the window, or keep the window "
-            f"within the gather band (<= {GATHER_MAX_CHUNKS * 128})"
+            f"window={window} resolves to K2 (the window hash table) and "
+            f"exceeds its ceiling {cap} at tile {tile} "
+            f"({DENSE_ROWCHUNK_BUDGET} rowchunks, the TPU kernel's budget "
+            "kept for parity): shrink the tile or the window, or keep the "
+            f"window within the gather band (<= {GATHER_MAX_CHUNKS * 128})"
         )
     if forced == "merge" and w_chunks > GATHER_MAX_CHUNKS:
         warnings.warn(
             f"explicit window={window} ({w_chunks} chunks) is past the "
             f"gather band's {GATHER_MAX_CHUNKS}-chunk cap and falls through "
-            "to the DENSE sweep, whose compare work scales with width",
+            "to K2, the window hash table, which takes a round for every "
+            "stage of live window slots",
             stacklevel=3,
         )
 
 
 def _merge_impl(plan: JoinPlan, window: int) -> str:
-    """Resolve 'merge' to a probe: the dense sweep (K2) for windows under
-    GATHER_MIN_CHUNKS or over GATHER_MAX_CHUNKS chunks, the binary-search
-    probe (K3) in between.  Explicit values are honoured; 'merge_jnp'
-    runs the plain version and exists for tests."""
+    """Resolve 'merge' to a probe: the window hash table (K2) for windows
+    under GATHER_MIN_CHUNKS or over GATHER_MAX_CHUNKS chunks, the
+    staged-window search (K3) in between.  Explicit values are
+    honoured; 'merge_jnp' runs the plain version and exists for tests."""
     if plan.probe_impl == "merge":
         if GATHER_MIN_CHUNKS * 128 <= window <= GATHER_MAX_CHUNKS * 128:
             return "merge_gather"
@@ -341,7 +346,7 @@ def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
         if impl != "merge_jnp":
             mv, mc = merge_probe_gather_indexed(ohk, bhk, bval, wrow_c, tidx,
                                                 mv, mc, tile,
-                                                plan.window_wide)
+                                                plan.window_wide, chunks)
         viol = viol + wide_ovf
     # the gather probe's max value relies on value-ordered runs, so a
     # unique_build plan whose build side has adjacent equal keys is
@@ -607,12 +612,14 @@ def join(inner_keys, inner_vals, outer_keys, outer_vals,
 
 def materialize(res: JoinResult):
     """Matched rows as host (keys, vals, tabs) numpy uint32 arrays.
-    Requires match counts <= 1 (unique build keys)."""
-    if int(res.match_cnts.max()) > 1:
+    Requires match counts <= 1 (unique build keys); an empty result gives
+    three empty arrays, as the JAX package's max(initial=0) does."""
+    mc = res.match_cnts
+    if mc.numel() and int(mc.max()) > 1:
         raise ValueError(
             "multi-match rows present; full M:N materialization is not "
             "ported yet"
         )
-    m = res.match_cnts == 1
+    m = mc == 1
     return (to_numpy_u32(res.probe_keys[m]), to_numpy_u32(res.probe_vals[m]),
             to_numpy_u32(res.match_vals[m]))

@@ -42,7 +42,8 @@ _SIGNATURES = {
     "hjk_merge_probe_gather": [_VP, _I64, _VP, _VP, _I64, _VP, _I64, _I64,
                                _VP, _VP, _I64, _INT, _INT, _VP],
     "hjk_merge_probe_gather_indexed": [_VP, _I64, _VP, _VP, _I64, _VP, _VP,
-                                       _I64, _I64, _I64, _VP, _VP, _VP],
+                                       _I64, _I64, _I64, _VP, _VP, _I64,
+                                       _INT, _INT, _VP],
     "hjk_probe_tiles": [_VP, _I64, _I64, _VP, _VP, _I64, _VP, _VP, _VP,
                         _INT, _INT, _INT, _I64, _VP],
     "hjk_radix_histogram": [_VP, _I64, _I64, _I64, _I64, _INT, _INT, _VP,

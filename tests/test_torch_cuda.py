@@ -274,12 +274,16 @@ def test_gather_kernel_staged_window(cuda, case):
     assert mg.merge_probe_gather.launches == before + 1
 
 
-def _indexed_inputs(dev, tile, n_tiles, window, seed):
-    """A sorted M:N build side, key-sorted probe tiles and anchors from
-    the engine's own window rows, clamped for `window`."""
+def _indexed_inputs(dev, tile, n_tiles, window, seed, staging="vec16"):
+    """A sorted M:N build side (at least 40 rows, and 8 rows past the
+    window), key-sorted probe tiles and anchors from the engine's own
+    window rows, clamped for `window`.  staging "vec4" drops the build
+    side's last key and shifts every column off a 16-byte boundary, so K4
+    stages its window with 4-byte copies."""
     rng = np.random.default_rng(seed)
+    rows = max(40, window // 128 + 8)
     keys = np.unique(rng.integers(1, 2**32, 6000, dtype=np.uint32))[:4000]
-    bk = keys[rng.integers(0, len(keys), 40 * 128)]
+    bk = keys[rng.integers(0, len(keys), rows * 128)]
     bk[:300] = 0  # build pads
     bv = rng.integers(0, 2**32, len(bk), dtype=np.uint32)
     order = np.lexsort((bv, bk))
@@ -287,24 +291,38 @@ def _indexed_inputs(dev, tile, n_tiles, window, seed):
     ok = keys[rng.integers(0, len(keys), tile * n_tiles)]
     ok[rng.integers(0, len(ok), len(ok) // 20)] = 0  # null probes
     o = bias(u32_to_device(np.sort(ok), dev))
-    rows = b.shape[0] // 128
     wrow_raw, _ = phj._window_rows(b, o, tile, rows)
+    if staging == "vec4":
+        o, b, v = (torch.cat([x[:1], x])[1:] for x in (o, b[:-1], v[:-1]))
+        assert b.shape[0] % 4 and all(x.data_ptr() % 16 for x in (o, b, v))
     return o, b, v, wrow_raw.clamp(0, rows - window // 128)
 
 
-@pytest.mark.parametrize("tile", [512, 3072])
-@pytest.mark.parametrize("pick", ["random", "duplicates", "edges"])
-def test_indexed_kernel_matches_plain(cuda, tile, pick):
-    """K4 against its plain version: random tile lists, repeated entries
-    and the first and last tile; unlisted slots keep their values."""
-    n_tiles, window = 24, 2560
-    o, b, v, wrow_w = _indexed_inputs(cuda, tile, n_tiles, window,
-                                      seed=tile)
-    rng = np.random.default_rng(tile + len(pick))
+def _indexed_list(dev, pick, n_tiles, seed):
+    rng = np.random.default_rng(seed)
     tidx = {"random": rng.permutation(n_tiles)[:9],
             "duplicates": np.array([4, 4, 7, 4, 7, 7, 0]),
-            "edges": np.array([0, n_tiles - 1])}[pick]
-    ti = torch.from_numpy(tidx.astype(np.int32)).to(cuda)
+            "edges": np.array([0, n_tiles - 1]),
+            "outside": np.array([n_tiles, 2, -1, 9, 1 << 30])}[pick]
+    return torch.from_numpy(tidx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("staging,chunks", [("vec16", 1), ("vec16", 64),
+                                            ("vec4", 5)])
+@pytest.mark.parametrize("window", [2560, 15104])
+@pytest.mark.parametrize("tile", [1024, 3072])
+@pytest.mark.parametrize("pick", ["random", "duplicates", "edges"])
+def test_indexed_kernel_matches_plain(cuda, pick, tile, window, staging,
+                                      chunks):
+    """K4 against its plain version: random tile lists, repeated entries
+    and the first and last tile, at a narrow window and at a full 59 KB
+    piece (15104 keys), with 16-byte and 4-byte staging, its blocks in
+    list order and over 64 and 5 runs of the list (more runs than
+    entries, and ragged ones); unlisted slots keep their values."""
+    n_tiles = 24
+    o, b, v, wrow_w = _indexed_inputs(cuda, tile, n_tiles, window,
+                                      seed=tile + window, staging=staging)
+    ti = _indexed_list(cuda, pick, n_tiles, tile + len(pick))
     wc = wrow_w[ti.long()].to(torch.int32).contiguous()
     mv0 = torch.randint(-2**31, 2**31, o.shape, dtype=torch.int32,
                         device=cuda)
@@ -313,7 +331,7 @@ def test_indexed_kernel_matches_plain(cuda, tile, pick):
                                                mc0.clone(), tile, window)
     before = mg.merge_probe_gather_indexed.launches
     got = mg.merge_probe_gather_indexed(o, b, v, wc, ti, mv0.clone(),
-                                        mc0.clone(), tile, window)
+                                        mc0.clone(), tile, window, chunks)
     assert mg.merge_probe_gather_indexed.launches == before + 1
     assert _equal(got, want)
     keep = torch.ones(n_tiles, dtype=torch.bool, device=cuda)
@@ -323,24 +341,51 @@ def test_indexed_kernel_matches_plain(cuda, tile, pick):
     assert int(got[1][~keep].sum()) > 0
 
 
-def test_indexed_kernel_skips_ids_outside_the_probe(cuda):
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("window", [2560, 15104])
+def test_indexed_kernel_skips_ids_outside_the_probe(cuda, window, chunks):
     """K4 writes nothing for a tile id outside [0, tiles), as its plain
     version; the slots of unlisted tiles keep their values."""
-    tile, n_tiles, window = 512, 24, 2560
+    tile, n_tiles = 512, 24
     o, b, v, wrow_w = _indexed_inputs(cuda, tile, n_tiles, window, seed=5)
-    ti = torch.tensor([n_tiles, 2, -1, 9, 1 << 30], dtype=torch.int32,
-                      device=cuda)
+    ti = _indexed_list(cuda, "outside", n_tiles, 0)
     wc = wrow_w[ti.long().clamp(0, n_tiles - 1)].to(torch.int32).contiguous()
     mv0 = torch.randint(-2**31, 2**31, o.shape, dtype=torch.int32,
                         device=cuda)
     mc0 = torch.full(o.shape, -1, dtype=torch.int32, device=cuda)
     got = mg.merge_probe_gather_indexed(o, b, v, wc, ti, mv0.clone(),
-                                        mc0.clone(), tile, window)
+                                        mc0.clone(), tile, window, chunks)
     want = mg.merge_probe_gather_indexed_torch(o, b, v, wc, ti, mv0.clone(),
                                                mc0.clone(), tile, window)
     assert _equal(got, want)
     written = (got[1] != -1).view(n_tiles, tile).all(1)
     assert written.nonzero().view(-1).tolist() == [2, 9]
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("staging", ["vec16", "vec4"])
+@pytest.mark.parametrize("pick", ["random", "duplicates", "outside"])
+def test_indexed_kernel_equals_k3_on_listed_tiles(cuda, pick, staging,
+                                                  chunks):
+    """K4 and K3 are one kernel body: on every listed tile K4's output is
+    K3's over all tiles at the same window and anchors, slot for slot,
+    whatever order K4's blocks take the list in."""
+    tile, n_tiles, window = 3072, 24, 15104
+    o, b, v, wrow_w = _indexed_inputs(cuda, tile, n_tiles, window, seed=11,
+                                      staging=staging)
+    wrow_w = wrow_w.to(torch.int32).contiguous()
+    ti = _indexed_list(cuda, pick, n_tiles, 3)
+    wc = wrow_w[ti.long().clamp(0, n_tiles - 1)].contiguous()
+    full = mg.merge_probe_gather(o, b, v, wrow_w, tile, window, chunks)
+    got = mg.merge_probe_gather_indexed(
+        o, b, v, wc, ti, torch.zeros_like(o), torch.zeros_like(o), tile,
+        window, chunks)
+    torch.cuda.synchronize()
+    listed = ti.long()[(ti >= 0) & (ti < n_tiles)]
+    for g, f in zip(got, full):
+        assert torch.equal(g.view(n_tiles, tile)[listed],
+                           f.view(n_tiles, tile)[listed])
+    assert int(got[1].sum()) > 0
 
 
 def _mn_build(seed=7, ni=4096, no=32768, distinct=1500):

@@ -17,13 +17,19 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hash_join_codes_knl_tpu_torch")
-# modules of the JAX package the port and chip_smoke.py may import: none
+# modules of the JAX package the port, chip_smoke.py and the port's
+# scripts may import: none
 ALLOWED = set()
 JAX_PKG = "hash_join_codes_knl_tpu"
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    """The port's modules, chip_smoke.py and the port's scripts
+    (scripts/torch_*.py), which run on the machine with the card too."""
+    scripts = os.path.join(REPO, "scripts")
+    out = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(scripts, f) for f in os.listdir(scripts)
+        if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

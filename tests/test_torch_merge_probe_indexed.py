@@ -1,8 +1,10 @@
 """The port's indexed wide-window probe (K4's plain version,
-ops/merge_probe_gather.merge_probe_gather_indexed_torch, and its wrapper
-on CPU tensors) against the JAX package's merge_probe_gather_indexed in
-Pallas interpret mode, on the same inputs.  Slot for slot, zero
-tolerance; the slots of unlisted tiles keep their input values."""
+ops/merge_probe_gather.merge_probe_gather_indexed_torch, its wrapper on
+CPU tensors, and the plain Python model of K4's kernel mapping from
+tests/test_torch_window_probes.py) against the JAX package's
+merge_probe_gather_indexed in Pallas interpret mode, on the same inputs.
+Slot for slot, zero tolerance; the slots of unlisted tiles keep their
+input values.  Both packages refuse a window wider than 128 chunks."""
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from torch_cases import (
     case_uniform,
     case_wide_window_max_key,
 )
+from test_torch_window_probes import indexed_model
 
 
 def _inputs(make, wide, pick):
@@ -67,6 +70,15 @@ def _port(fn, d):
     return to_numpy_u32(mv), mc.numpy()
 
 
+def _model(d, chunks=1):
+    """K4's kernel mapping in plain Python, on the case's columns, its
+    blocks over `chunks` runs of the list."""
+    mv, mc = indexed_model(d["o"].numpy(), d["b"].numpy(), d["v"].numpy(),
+                           d["wrow_c"], d["tidx"], d["mv_in"], d["mc_in"],
+                           d["tile"], d["wide"], chunks)
+    return mv.astype(np.uint32), mc.astype(np.int32)
+
+
 # (case, wide window, tile list): pad entries repeat real tiles; the
 # first and last tile; a window reaching the build side's end; M:N runs
 CASES = {
@@ -86,6 +98,10 @@ def test_indexed_matches_jax_interpret(name):
     make, wide, pick = CASES[name]
     d = _inputs(make, wide, pick)
     mv_j, mc_j = (np.asarray(x) for x in _jax(d))
+    for chunks in (1, 3):
+        mv, mc = _model(d, chunks)
+        np.testing.assert_array_equal(mc, mc_j, err_msg=f"model {chunks}")
+        np.testing.assert_array_equal(mv, mv_j, err_msg=f"model {chunks}")
     for fn in (mg.merge_probe_gather_indexed_torch,
                mg.merge_probe_gather_indexed):
         mv, mc = _port(fn, d)
@@ -153,3 +169,40 @@ def test_indexed_skips_ids_outside_the_probe():
         mv, mc = _port(fn, bad)
         np.testing.assert_array_equal(mc, want[1], err_msg=fn.__name__)
         np.testing.assert_array_equal(mv, want[0], err_msg=fn.__name__)
+    mv, mc = _model(bad)
+    np.testing.assert_array_equal(mc, want[1], err_msg="model")
+    np.testing.assert_array_equal(mv, want[0], err_msg="model")
+
+
+@pytest.mark.parametrize("path", ["plain", "wrapper", "model", "jax"])
+def test_indexed_refuses_more_than_128_chunks_like_jax(path):
+    """A window of 129 chunks is refused: by the port's plain version and
+    its wrapper (ValueError, on the CPU path as on the CUDA path), by K4's
+    model (one staged piece), and by the JAX wrapper (AssertionError, its
+    window // 128 <= 128); the port takes 128 chunks, MAX_PIECE slots."""
+    rng = np.random.default_rng(129)
+    rows, tile = 130, 128
+    bhk = np.sort(rng.integers(1, 2**32, rows * 128, dtype=np.uint32))
+    bval = rng.integers(0, 2**32, rows * 128, dtype=np.uint32)
+    ohk = np.sort(bhk[rng.integers(0, len(bhk), 4 * tile)])
+    d = dict(bhk=bhk, bval=bval, ohk=ohk, rows=rows, tile=tile,
+             tidx=np.array([1, 3], np.int32), wrow_c=np.zeros(2, np.int32),
+             mv_in=np.zeros(len(ohk), np.uint32),
+             mc_in=np.zeros(len(ohk), np.int32),
+             o=bias(u32_to_device(ohk, "cpu")),
+             b=bias(u32_to_device(bhk, "cpu")), v=u32_to_device(bval, "cpu"))
+    run = {"plain": lambda: _port(mg.merge_probe_gather_indexed_torch, d),
+           "wrapper": lambda: _port(mg.merge_probe_gather_indexed, d),
+           "model": lambda: _model(d), "jax": lambda: _jax(d)}[path]
+    assert mg.MAX_PIECE == 128 * 128
+    if path != "jax":
+        d["wide"] = mg.MAX_PIECE
+        mv, mc = run()
+        assert mc.sum() > 0
+    d["wide"] = mg.MAX_PIECE + 128
+    if path == "jax":
+        with pytest.raises(AssertionError, match=str(d["wide"])):
+            run()
+    else:
+        with pytest.raises(ValueError, match="wider than|more than one"):
+            run()

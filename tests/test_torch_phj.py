@@ -377,6 +377,30 @@ def test_materialize_refuses_multi_match():
         tphj.materialize(res)
 
 
+@pytest.mark.parametrize("build", ["unique", "mn"])
+def test_materialize_empty_result_like_jax(build):
+    """An empty probe side joins to a zero-slot result, and materialize
+    gives three empty uint32 arrays, as the JAX package's materialize does
+    on an empty JoinResult (its join refuses an empty probe side), over a
+    unique and an M:N build side alike."""
+    if build == "unique":
+        ik, iv, _, _ = _generated(17, 4096, 8192, mode="uniform")
+    else:
+        ik, iv, _, _ = _mn_build()
+    empty = np.zeros(0, np.uint32)
+    res, _ = tphj.join(ik, iv, empty, empty, device="cpu")
+    assert res.match_cnts.numel() == 0 and int(res.join_tuples) == 0
+    got = tphj.materialize(res)
+    z = jax.numpy.zeros(0, jax.numpy.uint32)
+    want = jphj.materialize(jphj.JoinResult(
+        z, z, z, jax.numpy.zeros(0, jax.numpy.int32),
+        jax.numpy.zeros(3, jax.numpy.int32)))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint32 and g.shape == (0,)
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
 def test_default_plan_matches_jax_plan():
     assert plan_join(4096, 65536) == plan_from_jax(jax_plan_join(4096, 65536))
 

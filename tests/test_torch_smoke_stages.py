@@ -1,8 +1,9 @@
 """chip_smoke.py's helpers on the CPU: the padded stage breakdown runs
 _phj_join_padded's steps one by one, and its results must equal the
 engine's; the two-class plan's set-up leaves the launch counts as they
-were; the trace's interval union, the binary-search probe's bound and
-the tile probe's."""
+were; K4's headline-list check holds K4 against K3's output; the trace's
+interval union, the sorted-window probes' bound and the tile probe's;
+the names of ptxas' report."""
 
 import dataclasses
 import importlib.util
@@ -198,3 +199,59 @@ def test_oracle_threads_give_the_oracle_digests(monkeypatch):
     top = [np.unique(cases[name][0][1].keys, return_counts=True)[1].max()
            for name in ("zipf_4m", "uniform_4m")]
     assert top[0] > 3 * top[1]  # the Zipf case is the skewed one
+
+
+@pytest.mark.parametrize("stride", [1, 3, 16])
+def test_k4_headline_list_check_holds_k4_to_k3(monkeypatch, stride):
+    """The headline-list check of K4, on a small merge layout through the
+    wrappers' CPU path: every stride-th tile agrees with K3's output over
+    all tiles, and a K3 output that differs on a listed tile fails it."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "K4_HEADLINE_STRIDE", stride)
+    monkeypatch.setattr(smoke, "_median_ms", lambda fn, reps: fn() and 0.0)
+    monkeypatch.setattr(smoke, "_queued_ms", lambda fn: fn() and 0.0)
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+
+    rng = np.random.default_rng(stride)
+    ik = np.unique(rng.integers(1, 2**32, 5000, dtype=np.uint32))[:4096]
+    ok = ik[rng.integers(0, ik.size, 16384)]
+    ok[::13] = 0  # null probes
+    ik, iv, ok, ov = (u32_to_device(c, "cpu") for c in (
+        ik, rng.integers(0, 2**32, ik.size, dtype=np.uint32), ok,
+        rng.integers(0, 2**32, ok.size, dtype=np.uint32)))
+    plan = dataclasses.replace(plan_join(ik.shape[0], ok.shape[0],
+                                         tile=256), probe_chunks=4)
+    bhk, bval, ohk, _, wrow, tile, window = smoke._stages(
+        (ik, iv, ok, ov), plan)
+    k3 = mg.merge_probe_gather(ohk, bhk, bval, wrow, tile, window)
+    assert int(k3[1].sum()) > 0
+    got = smoke._kernel_indexed_headline(ohk, bhk, bval, wrow, tile, window,
+                                         k3, plan.probe_chunks)
+    n_tiles = ohk.shape[0] // tile
+    assert got["entries_headline_list"] == -(-n_tiles // stride)
+    assert got["max_abs_err_headline"] == 0 and got["ms_headline_list"] == 0
+    assert got["bound_ms_headline_list"] > 0
+    k3[1][0] += 1  # tile 0 is always listed
+    with pytest.raises(AssertionError, match="all .* listed"):
+        smoke._kernel_indexed_headline(ohk, bhk, bval, wrow, tile, window,
+                                       k3, plan.probe_chunks)
+
+
+def test_ptxas_report_names_each_instance_of_a_templated_kernel():
+    """ptxas reports mangled names; a kernel templated on one bool (K3
+    and K4's shared body) is named kernel<false> and kernel<true>."""
+    entry = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+             "{}' for 'sm_90a'\n")
+    use = ("ptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used {} registers, used 1 barriers\n")
+    text = "".join(entry.format(name) + use.format(r) for name, r in (
+        ("25merge_probe_gather_kernelILb0EEEvPKilllS2_", 32),
+        ("25merge_probe_gather_kernelILb1EEEvPKilllS2_", 34),
+        ("24merge_probe_dense_kernelEPKi", 50)))
+    got = _chip_smoke()._ptxas_report(text)
+    assert [k for k, _ in got] == ["merge_probe_gather_kernel<false>",
+                                   "merge_probe_gather_kernel<true>",
+                                   "merge_probe_dense_kernel"]
+    assert got[1][1].startswith("Used 34 registers")
+    assert "0 bytes spill stores" in got[1][1]

@@ -1,12 +1,13 @@
 """The launch geometry and the algorithms of the port's window-probe
 kernels, on the CPU: K2's shared-memory table of a window
-(ops/merge_probe.py ``window_table_geometry``, csrc/merge_probe.cu) and
-K3's search in a staged window (ops/merge_probe_gather.py
-``gather_geometry``, csrc/merge_probe_gather.cu), and the block order
-both kernels share (``block_tiles``).  Plain Python models of exactly
-what the kernels do are held against the plain version
-``merge_probe_torch``, slot for slot.  The kernels themselves run in
-tests/test_torch_cuda.py, on the card."""
+(ops/merge_probe.py ``window_table_geometry``, csrc/merge_probe.cu), the
+search in a staged window that K3 and K4 share (ops/merge_probe_gather.py
+``gather_geometry``, csrc/merge_probe_gather.cu) with K4's mapping of
+blocks to list entries, and the block order K2 and K3 share
+(``block_tiles``).  Plain Python models of exactly what the kernels do
+are held against the plain versions ``merge_probe_torch`` and K4's
+``merge_probe_gather_indexed_torch``, slot for slot.  The kernels
+themselves run in tests/test_torch_cuda.py, on the card."""
 
 import dataclasses
 
@@ -208,15 +209,15 @@ def _run_end(keys, lo, p):
     return a
 
 
-def _gather_model(pk, bk, bv, wrow, tile, window, piece):
-    """K3 in plain Python: each tile's window staged in pieces of `piece`
-    keys; a probe inside [first, last] key of a piece takes a lower bound
-    and the run's end there; the first piece writes, later ones add their
-    count and take their value on a hit."""
-    mv = np.zeros(len(pk), np.int64)
-    mc = np.zeros(len(pk), np.int64)
-    for t in range(len(pk) // tile):
-        start = max(0, min(int(wrow[t]) * 128, len(bk) - window))
+def _staged_body(pk, bk, bv, blocks, tile, window, piece, mv, mc):
+    """The kernel body K3 and K4 share, in plain Python: block (t, row)
+    stages the window anchored at `row` (clamped into the build side) in
+    pieces of `piece` keys; a probe of tile t inside [first, last] key of
+    a piece takes a lower bound and the run's end there; the first piece
+    stores (count, value), later ones add their count and take their
+    value on a hit.  Writes mv, mc in place."""
+    for t, row in blocks:
+        start = max(0, min(int(row) * 128, len(bk) - window))
         for w0 in range(0, window, piece):
             keys = bk[start + w0 : start + min(window, w0 + piece)]
             for i in range(t * tile, (t + 1) * tile):
@@ -231,17 +232,47 @@ def _gather_model(pk, bk, bv, wrow, tile, window, piece):
                     mc[i], mv[i] = c, v
                 elif c:
                     mc[i], mv[i] = mc[i] + c, v
+
+
+def _gather_model(pk, bk, bv, wrow, tile, window, piece):
+    """K3 in plain Python: every tile, at its own anchor, through the
+    shared body."""
+    mv = np.zeros(len(pk), np.int64)
+    mc = np.zeros(len(pk), np.int64)
+    _staged_body(pk, bk, bv, [(t, wrow[t]) for t in range(len(pk) // tile)],
+                 tile, window, piece, mv, mc)
     return mv, mc
 
 
-@pytest.mark.parametrize("piece", [None, 256, 128])
-@pytest.mark.parametrize("shuffle", [False, True])
-def test_gather_pieces_model_matches_plain(piece, shuffle):
-    """K3's staged search equals the plain sweep on a (key, value)-sorted
-    M:N window, in one piece and in pieces whose boundaries cut runs, with
-    the probes sorted within their tiles or not."""
+def indexed_model(pk, bk, bv, wrow_c, tidx, mv, mc, tile, window,
+                  chunks=1):
+    """K4 in plain Python: block b takes list entry j = block_entries(b)
+    over `chunks` runs of the list, tile tidx[j] at anchor wrow_c[j]; an
+    entry outside [0, tiles) returns before it stages anything; the
+    window is one piece (a wider one is refused), so every listed slot
+    takes one plain store over the first pass's (mv, mc).  Returns new
+    (mv, mc) as int64 arrays (mv the uint32 bits)."""
+    piece = mg.gather_geometry(window, tile)[0]
+    if piece < window:
+        raise ValueError(f"window {window} is more than one piece")
+    n_tiles = len(pk) // tile
+    mv = np.asarray(mv).astype(np.int64) & 0xFFFFFFFF
+    mc = np.asarray(mc).astype(np.int64)
+    entries = mg.block_entries(len(tidx), chunks).tolist() if len(tidx) \
+        else []
+    _staged_body(pk, bk, bv, [(int(tidx[j]), wrow_c[j]) for j in entries
+                              if j >= 0 and 0 <= tidx[j] < n_tiles],
+                 tile, window, piece, mv, mc)
+    return mv, mc
+
+
+def _sorted_mn_case(shuffle):
+    """A (key, value)-sorted M:N build side of 12 rows with pads in front,
+    10 tiles of 64 probes sorted over the column (every 11th null), or
+    shuffled within their tiles: (probe, keys, values, unclamped anchor
+    rows, tile, rows)."""
     rng = np.random.default_rng(3)
-    tile, rows, window = 64, 12, 640
+    tile, rows = 64, 12
     pool = np.unique(rng.integers(1, 2**32, 120, dtype=np.uint32))
     bk = np.repeat(pool, rng.integers(1, 40, len(pool)))[: rows * 128]
     bk[:50] = 0  # build pads in front
@@ -251,12 +282,22 @@ def test_gather_pieces_model_matches_plain(piece, shuffle):
     ok = np.sort(bk[rng.integers(0, len(bk), 10 * tile)])
     ok[::11] = 0
     o, b = bias(u32_to_device(ok, "cpu")), bias(u32_to_device(bk, "cpu"))
-    wrow = phj._window_rows(b, o, tile, rows)[0].clamp(
-        0, rows - window // 128).to(torch.int32)
+    wrow_raw = phj._window_rows(b, o, tile, rows)[0]
     if shuffle:
         o = o.view(-1, tile)[:, torch.from_numpy(rng.permutation(tile))]
         o = o.reshape(-1).contiguous()
-    v = u32_to_device(bv, "cpu")
+    return o, b, u32_to_device(bv, "cpu"), wrow_raw, tile, rows
+
+
+@pytest.mark.parametrize("piece", [None, 256, 128])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_gather_pieces_model_matches_plain(piece, shuffle):
+    """K3's staged search equals the plain sweep on a (key, value)-sorted
+    M:N window, in one piece and in pieces whose boundaries cut runs, with
+    the probes sorted within their tiles or not."""
+    o, b, v, wrow_raw, tile, rows = _sorted_mn_case(shuffle)
+    window = 640
+    wrow = wrow_raw.clamp(0, rows - window // 128).to(torch.int32)
     piece = piece or mg.gather_geometry(window, tile)[0]
     mv, mc = _gather_model(o.numpy(), b.numpy(), v.numpy(), wrow.numpy(),
                            tile, window, piece)
@@ -265,6 +306,82 @@ def test_gather_pieces_model_matches_plain(piece, shuffle):
     np.testing.assert_array_equal(
         mv, want_mv.numpy().astype(np.int64) & 0xFFFFFFFF)
     assert want_mc.max() > 1
+
+
+# K4's tile lists over the 10 tiles of _sorted_mn_case: wide tiles then
+# pads that repeat them (the engine's list), the first and last tile, ids
+# outside the probe, every tile twice, none
+INDEXED_LISTS = {
+    "pads_repeat": [2, 5, 7, 5, 5, 2],
+    "first_and_last": [0, 9],
+    "outside_the_probe": [10, 3, -1, 6, 17, 1 << 30],
+    "every_tile_twice": list(range(10)) + list(range(9, -1, -1)),
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(INDEXED_LISTS))
+@pytest.mark.parametrize("shuffle,chunks", [(False, 1), (True, 3)])
+def test_indexed_model_matches_plain(name, shuffle, chunks):
+    """K4's mapping (one block per list entry on the shared body, in the
+    order of `chunks` runs of the list, entries outside the probe
+    skipped, one piece, plain stores over the first pass's outputs)
+    equals its plain version slot for slot, at the widest window the
+    build side takes (anchors clamped, so the last tile's window ends at
+    the build side's end) and at a narrower one; the slots of unlisted
+    tiles keep their values."""
+    o, b, v, wrow_raw, tile, rows = _sorted_mn_case(shuffle)
+    rng = np.random.default_rng(len(name))
+    mv0 = rng.integers(0, 2**32, o.shape[0], dtype=np.uint32)
+    mc0 = rng.integers(0, 50, o.shape[0]).astype(np.int32)
+    tidx = np.asarray(INDEXED_LISTS[name], np.int32)
+    for window in (rows * 128, 640):
+        wrow_w = wrow_raw.clamp(0, rows - window // 128)
+        wrow_c = wrow_w[torch.from_numpy(tidx).long().clamp(0, 9)].to(
+            torch.int32)
+        got = indexed_model(o.numpy(), b.numpy(), v.numpy(), wrow_c.numpy(),
+                            tidx, mv0, mc0, tile, window, chunks)
+        mv, mc = u32_to_device(mv0, "cpu"), torch.from_numpy(mc0.copy())
+        mg.merge_probe_gather_indexed_torch(o, b, v, wrow_c,
+                                            torch.from_numpy(tidx), mv, mc,
+                                            tile, window)
+        np.testing.assert_array_equal(got[1], mc.numpy())
+        np.testing.assert_array_equal(
+            got[0], mv.numpy().astype(np.int64) & 0xFFFFFFFF)
+        listed = np.zeros(10, bool)
+        listed[tidx[(tidx >= 0) & (tidx < 10)]] = True
+        keep = np.repeat(~listed, tile)
+        np.testing.assert_array_equal(got[1][keep], mc0[keep])
+        np.testing.assert_array_equal(got[0][keep], mv0[keep])
+        if listed.any():
+            assert got[1][~keep].sum() > 0
+        if name == "first_and_last":
+            start = min(int(wrow_c[1]) * 128, rows * 128 - window)
+            assert start + window == rows * 128
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 64])
+@pytest.mark.parametrize("n_idx", [1, 7, 63, 64, 65, 896, 5212])
+def test_indexed_block_order_is_a_permutation(n_idx, chunks):
+    """K4's blocks take every list entry once, each in its run of the
+    list (ceil-balanced runs), the first blocks the first entry of every
+    run; on an ascending list of every 16th tile of the headline layout
+    (64 chunks of 1303 tiles), each row of `chunks` blocks stays within
+    one listed position of every chunk."""
+    e = mg.block_entries(n_idx, chunks)
+    assert e.shape[0] == chunks * -(-n_idx // chunks)
+    assert sorted(e[e >= 0].tolist()) == list(range(n_idx))
+    starts = [-(-c * n_idx // chunks) for c in range(chunks + 1)]
+    run = torch.bucketize(e[e >= 0], torch.tensor(starts[1:-1]),
+                          right=True)
+    assert (run == torch.arange(e.shape[0])[e >= 0] % chunks).all()
+    lead = e[:chunks]
+    assert lead[lead >= 0].tolist() == sorted(set(starts[:-1]) - {n_idx})
+    if n_idx == 5212 and chunks == 64:
+        tiles = torch.arange(0, 83392, 16)
+        for row in e.view(-1, chunks):
+            pos = tiles[row[row >= 0]] % 1303
+            assert int(pos.max() - pos.min()) < 16
 
 
 @pytest.mark.parametrize("tile", TILES)
