@@ -9,7 +9,14 @@ columns.  The padded path (sort-mode and radix-partitioned PHJ): digests
 against the oracle, then 16M x 256M in sort mode and in the 4096-way
 radix mode.  The NPJ path (npj_join): digests against the oracle, then
 4M x 16M and 16M x 256M in both output orders, then the dense window
-probe alone on the 16M x 256M table.
+probe alone on the 16M x 256M table.  The CLI path
+(hash_join_codes_knl_tpu_torch.cli, as a user runs it): write, then phj
+and npj from those files at 1M x 8M, then the 16M x 256M headline phj
+with --timelog --check --aggregate (its phase seconds, roofline shares
+and aggregate group count).  Then the hash aggregate's three bench row
+shapes on the headline's probe columns.  The merge path's M:N join is
+also expanded (materialize_expanded) and aggregated, against the numpy
+oracle.
 
     python3 chip_smoke.py
 
@@ -28,16 +35,23 @@ run once under torch.profiler and split into its kernels.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+
+from hash_join_codes_knl_tpu_torch.utils.roofline import (
+    H100_SXM_BYTES_PER_S,
+)
 
 HEADLINE = (16_000_000, 256_000_000)  # bench.py's shape
 HEADLINE_4M = (4_000_000, 64_000_000)  # the digest check's shape
@@ -48,10 +62,11 @@ SMALL = (1_000_000, 8_000_000)  # the dense probe's and sort mode's shape
 BATTERY = (400_000, 262_144, 3_000_000, 500_000)
 NPJ_4M = (4_000_000, 16_000_000)  # the npj_uniform bench row's shape
 
-# one H100 SXM at its 700 W limit: device memory rate, and the 32-bit
-# integer rate (132 SMs x 64 INT32 lanes x 1.98 GHz; the float32 rate of
-# 67 TFLOP/s counts 128 lanes and two operations per FMA)
-HBM_BYTES_PER_S = 3.35e12
+# one H100 SXM at its 700 W limit: device memory rate (the roofline's
+# one definition), and the 32-bit integer rate (132 SMs x 64 INT32
+# lanes x 1.98 GHz; the float32 rate of 67 TFLOP/s counts 128 lanes and
+# two operations per FMA)
+HBM_BYTES_PER_S = H100_SXM_BYTES_PER_S
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
@@ -731,6 +746,50 @@ def phase_joins(dev, oracles):
         raise AssertionError(f"M:N join: {got} matches, oracle {want}")
     _print(f"phase join: M:N 1M (250K distinct) x 8M: {got} matches equal "
            f"the oracle's; max multiplicity {int(res.match_cnts.max())}")
+    _mn_expansion(res, ik, iv, ok, ov)
+
+
+def _mn_expansion(res, ik, iv, ok, ov) -> None:
+    """The M:N result expanded into rows (materialize_expanded, in one
+    block and in blocks of 2M rows) against join_oracle's digest, and
+    aggregated (aggregate_join_result_expanded) against the group count
+    and sum checksum of a numpy group-by over the oracle's rows."""
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+    from hash_join_codes_knl_tpu_torch.engine.phj import materialize_expanded
+    from hash_join_codes_knl_tpu_torch.ops.aggregate import (
+        aggregate_join_result_expanded,
+    )
+    from hash_join_codes_knl_tpu_torch.utils.hashing import to_numpy_u32
+
+    ek, ev, et = join_oracle(ik, iv, ok, ov)
+    want = multiset_digest(ek, ev, et)
+    for block_rows in (0, 2_000_000):
+        t0 = time.perf_counter()
+        got = multiset_digest(*materialize_expanded(res, ik, iv,
+                                                    block_rows=block_rows))
+        if got != want:
+            raise AssertionError(f"materialize_expanded block_rows="
+                                 f"{block_rows}: digest {got} != oracle "
+                                 f"{want}")
+        _print(f"phase join: M:N materialize_expanded block_rows="
+               f"{block_rows}: digest equals the oracle's ({got[0]} rows; "
+               f"{time.perf_counter() - t0:.3f} s with the digest)")
+    order = np.argsort(ek, kind="stable")
+    ek_s = ek[order]
+    starts = np.flatnonzero(np.r_[True, ek_s[1:] != ek_s[:-1]])
+    sums = np.add.reduceat(et[order].astype(np.uint64), starts) & 0xFFFFFFFF
+    want_agg = (len(starts), int(sums.sum(dtype=np.uint64)))
+    ng, _, gsum, _ = aggregate_join_result_expanded(res, ik, iv)
+    g = int(ng)
+    got_agg = (g, int(to_numpy_u32(gsum[:g]).astype(np.uint64).sum()))
+    if got_agg != want_agg:
+        raise AssertionError(f"M:N aggregate (groups, sum checksum) "
+                             f"{got_agg} != numpy {want_agg}")
+    _print(f"phase join: M:N aggregate_join_result_expanded: {g} groups, "
+           f"sum checksum {got_agg[1]}, equal to the numpy group-by")
 
 
 def phase_headline(dev, cols, gen_s) -> None:
@@ -1305,6 +1364,148 @@ def _kernel_npj_probe(cols, label, plan) -> dict:
                 bound_ms_npj=bound["bound_ms"], plain_ms_npj=plain_ms)
 
 
+def _cli(argv) -> tuple:
+    """cli.main(argv) as a user runs it: (exit code, the JSON of its last
+    standard-output line or None, its standard error)."""
+    from hash_join_codes_knl_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    js = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    if rc != 0 or js is None:
+        raise AssertionError(f"cli {argv}: exit {rc}, stdout "
+                             f"{out.getvalue()[-2000:]!r}, stderr "
+                             f"{err.getvalue()[-2000:]!r}")
+    return rc, js, err.getvalue()
+
+
+def phase_cli_files(tmp: str) -> None:
+    """write, then phj and npj from the files, at 1M x 8M, each through
+    cli.main; cardinality against the searchsorted count of the files'
+    keys (outer > inner: the CLI's analytic gate does not apply)."""
+    from hash_join_codes_knl_tpu_torch.relation import load_relation
+
+    ni, no = SMALL
+    sizes = [str(no), str(ni)]
+    t0 = time.perf_counter()
+    _, meta, _ = _cli(["write", "1", *sizes, "--dir", tmp, "--seed", "41"])
+    write_s = time.perf_counter() - t0
+    inner = load_relation("inner", ni, tmp)
+    outer = load_relation("outer", no, tmp)
+    want = _oracle_count(inner.keys, outer.keys)
+    del inner, outer
+    runs = []
+    for argv in (["phj"], ["npj"], ["npj", "--sorted-order"]):
+        _, out, _ = _cli([argv[0], "1", *sizes, "--dir", tmp, "--json",
+                          *argv[1:]])
+        if out["join_tuples"] != want:
+            raise AssertionError(f"cli {argv} from files: join_tuples "
+                                 f"{out['join_tuples']} != {want}")
+        runs.append(f"{' '.join(argv)} {out['tuples_per_s']:.1f} tuples/s "
+                    f"(phases {_phase_s(out)})")
+    _print(f"phase cli: write {ni} x {no} ({write_s:.3f} s, mode "
+           f"{meta['mode']}); from the files, join_tuples {want} equal the "
+           f"searchsorted count in {'; '.join(runs)}")
+
+
+def _phase_s(out: dict) -> dict:
+    """A CLI report's phase seconds, by phase."""
+    return {k[:-2]: v for k, v in out.items()
+            if k.endswith("_s") and k not in ("total_s", "tuples_per_s")}
+
+
+def phase_cli_headline(tmp: str, cols) -> dict:
+    """The headline through the CLI: phj 1 256000000 16000000 --json
+    --timelog --check --aggregate (generated in memory, as the CLI does:
+    the same relations as the headline's columns).  Exact cardinality,
+    the staged phases and the roofline, the checks' stats, and the
+    aggregate's group count held equal to the distinct matched probe
+    keys of the headline columns (torch.unique on the card)."""
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
+
+    ni, no = HEADLINE
+    t0 = time.perf_counter()
+    _, out, err = _cli(["phj", "1", str(no), str(ni), "--json", "--timelog",
+                        "--check", "--aggregate", "--dir", tmp])
+    wall = time.perf_counter() - t0
+    want = expected_join_tuples(ni, no)
+    if out["join_tuples"] != want:
+        raise AssertionError(f"cli headline: join_tuples "
+                             f"{out['join_tuples']} != {want}")
+    lines = {k: line for line in err.splitlines()
+             for k in ("CHECK OK", "AGGREGATE") if line.startswith(k)}
+    if set(lines) != {"CHECK OK", "AGGREGATE"}:
+        raise AssertionError(f"cli headline: no check or aggregate line in "
+                             f"{err[-2000:]!r}")
+    groups = int(re.search(r"AGGREGATE: (\d+) groups",
+                           lines["AGGREGATE"]).group(1))
+    ik, _, ok, _ = cols
+    u = torch.unique(ok)
+    distinct = int(torch.isin(u[u != 0], ik).sum())
+    if groups != distinct:
+        raise AssertionError(f"cli headline: {groups} groups != {distinct} "
+                             "distinct matched probe keys")
+    phases = _phase_s(out)
+    stages = ("partition_build", "partition_probe", "windows", "probe")
+    roof = {p: (out[f"{p}_gbps"], out[f"{p}_pct_roofline"]) for p in stages
+            if f"{p}_gbps" in out}
+    _print(f"phase cli: phj {no} x {ni} --timelog --check --aggregate: "
+           f"join_tuples {out['join_tuples']} exact; {lines['CHECK OK']}; "
+           f"{lines['AGGREGATE']} = the distinct matched probe keys "
+           f"(torch.unique); tuples_per_s {out['tuples_per_s']} "
+           f"(total {out['total_s']} s of phases; {wall:.3f} s with "
+           "generation)")
+    _print(f"phase cli: headline phase s {phases}; staged join "
+           f"{sum(phases[p] for p in stages):.6f} s")
+    _print(f"phase cli: roofline (GB/s, % of {out['hbm_peak_gbps']} GB/s, "
+           f"{out['hbm_peak_source']}) {roof}; pipeline "
+           f"{out['pipeline_pct_roofline']}%")
+    return out
+
+
+def phase_aggregates(cols) -> None:
+    """The hash aggregate at the bench's three row shapes on the
+    headline's probe columns (256M rows): single-level over its 16M
+    groups, chunked (64 chunks, partial_cap 2^23) over the keys folded
+    to 64K groups, and single-level over those; CUDA-event medians of 3.
+    Chunked and single-level are held equal on the groups."""
+    from hash_join_codes_knl_tpu_torch.ops.aggregate import (
+        hash_aggregate,
+        hash_aggregate_chunked,
+    )
+
+    _, _, ok, ov = cols
+    ng = int(hash_aggregate(ok, ov)[0])
+    if ng != HEADLINE[0]:
+        raise AssertionError(f"aggregate: {ng} groups != {HEADLINE[0]}")
+    ms_16m = _median_ms(lambda: hash_aggregate(ok, ov), 3)
+    folded = (ok & 0xFFFF) + 1
+    n1, k1, s1, c1, ovf = hash_aggregate_chunked(folded, ov, chunks=64,
+                                                 partial_cap=1 << 23)
+    g = int(n1)
+    n0, k0, s0, c0 = hash_aggregate(folded, ov)
+    if int(ovf) != 0 or int(n0) != g or not all(
+            torch.equal(a[:g], b[:g]) for a, b in ((k1, k0), (s1, s0),
+                                                   (c1, c0))):
+        raise AssertionError(f"aggregate: chunked ({g} groups, overflow "
+                             f"{int(ovf)}) differs from single-level "
+                             f"({int(n0)} groups)")
+    del n1, k1, s1, c1, n0, k0, s0, c0
+    ms_chunked = _median_ms(lambda: hash_aggregate_chunked(
+        folded, ov, chunks=64, partial_cap=1 << 23), 3)
+    ms_64k = _median_ms(lambda: hash_aggregate(folded, ov), 3)
+    n = ok.shape[0]
+    _print(f"phase aggregate: {n} rows, CUDA-event medians of 3: "
+           f"hash_aggregate {ng} groups {ms_16m:.3f} ms; "
+           f"hash_aggregate_chunked (64 chunks, partial_cap 2^23) {g} "
+           f"groups {ms_chunked:.3f} ms; hash_aggregate {g} groups "
+           f"{ms_64k:.3f} ms; chunked equals single-level on the {g} "
+           "groups")
+
+
 KERNELS = [
     ("flat_to_rows", "hash_join_codes_knl_tpu_torch/csrc/chunk_layout.cu",
      "hash_join_codes_knl_tpu/ops/chunk_layout.py:61"),
@@ -1327,6 +1528,7 @@ MERGE_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
                  "merge_probe_gather_indexed"]
 PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition"]
 NPJ_KERNELS = ["merge_probe"]
+CLI_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
 
 
 def main() -> None:
@@ -1437,10 +1639,24 @@ def main() -> None:
         stats["merge_probe"]["max_abs_err"],
         stats["merge_probe"].pop("max_abs_err_npj"))
     _stamp("K2's check on NPJ's table")
+    torch.cuda.empty_cache()
+
+    _set_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli_files(tmp)
+        _stamp("the CLI's 1M x 8M runs")
+        phase_cli_headline(tmp, cols_h)
+        _stamp("the CLI's headline run")
+    cli = _launches()
+    _print(f"launches, cli path: {cli}")
+    torch.cuda.empty_cache()
+    phase_aggregates(cols_h)
+    _stamp("the aggregate timings")
     del cols_h
     for path, names, got in (("merge", MERGE_KERNELS, merge),
                              ("padded", PADDED_KERNELS, padded),
-                             ("npj", NPJ_KERNELS, npj)):
+                             ("npj", NPJ_KERNELS, npj),
+                             ("cli", CLI_KERNELS, cli)):
         for name in names:
             if got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the "
@@ -1449,7 +1665,8 @@ def main() -> None:
     # no single PyTorch call computes any of these kernels' functions
     # (PERF.md says why, kernel by kernel), so library_ms is null
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=merge[name] + padded[name] + npj[name],
+                    launches=(merge[name] + padded[name] + npj[name]
+                              + cli[name]),
                     library_ms=None, **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))

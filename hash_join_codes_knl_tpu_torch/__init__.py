@@ -1,12 +1,14 @@
 """The query engine's partitioned hash join (merge, padded and radix
-modes, the two-class window geometry) and its no-partition hash join
-(NPJ) in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
+modes, the two-class window geometry), its no-partition hash join (NPJ),
+the M:N expansion, the hash aggregate and the single-device CLI
+(``python -m hash_join_codes_knl_tpu_torch.cli``) in PyTorch, with
+hand-written CUDA kernels for the NVIDIA H100.
 
 A port of ``hash_join_codes_knl_tpu`` (JAX/Pallas on a TPU), which stays
 the reference it is tested against.  This package imports no JAX and
 nothing of the reference package: it keeps its own copies of the
-numpy-only host modules (the relation generator, ``Relation`` and the
-join oracle).
+numpy-only host modules (the relation generator, ``Relation`` and its
+files, the relation IO and the join oracle).
 """
 
 __version__ = "0.1.0"
@@ -19,10 +21,17 @@ _EXPORTS = {
     "plan_join": (".engine.config", "plan_join"),
     "join": (".engine.phj", "join"),
     "materialize": (".engine.phj", "materialize"),
+    "materialize_expanded": (".engine.phj", "materialize_expanded"),
     "NpjPlan": (".engine.npj", "NpjPlan"),
     "plan_npj": (".engine.npj", "plan_npj"),
     "npj_join": (".engine.npj", "npj_join"),
     "generate": (".relgen.generate", "generate"),
+    "hash_aggregate": (".ops.aggregate", "hash_aggregate"),
+    "hash_aggregate_chunked": (".ops.aggregate", "hash_aggregate_chunked"),
+    "hash_aggregate_auto": (".ops.aggregate", "hash_aggregate_auto"),
+    "aggregate_join_result": (".ops.aggregate", "aggregate_join_result"),
+    "aggregate_join_result_expanded": (
+        ".ops.aggregate", "aggregate_join_result_expanded"),
     "join_oracle": (".engine.oracle", "join_oracle"),
     "multiset_digest": (".engine.oracle", "multiset_digest"),
 }

@@ -38,8 +38,9 @@ whose span exceeds it at ``window_wide``, in place.  More wide tiles
 than ``wide_cap`` is a counted plan-opt violation; join() then collapses
 the plan to one class at ``window_wide``.
 
-Not ported yet (ROADMAP.md): ``materialize_expanded`` and the staged
-pipeline.
+``phj_join_merge_staged`` runs the merge stages as timed phases (the
+CLI's ``--timelog``), and ``materialize_expanded`` expands M:N results
+into rows (ops/expand.py).
 """
 
 from __future__ import annotations
@@ -358,15 +359,22 @@ def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
     return JoinResult(_unscramble(ohk, plan.factor), ov, mv, mc, stats)
 
 
+def _untimed(name, fn, *args, **kw):
+    return fn(*args, **kw)
+
+
 def phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
-                   plan: JoinPlan) -> JoinResult:
+                   plan: JoinPlan, timer=None) -> JoinResult:
     """PHJ, merge mode: partition == sort, probe == window probe.  Inputs
     are 1-D int32 tensors (uint32 bits) on one device; the result's
     build_counts is [window-overflow tile count, max required span,
     plan-opt violations] and must be all zero but the span to be
     complete.  A two-class plan whose wide window is wider than the build
     side is refused, as the JAX package refuses it (its window slice
-    cannot exceed the build side)."""
+    cannot exceed the build side).  With a `timer` (utils/timing.py
+    PhaseTimer) the four stages run as its phases
+    (phj_join_merge_staged)."""
+    run = _untimed if timer is None else timer.run
     ni, no = inner_keys.shape[0], outer_keys.shape[0]
     tile, window, rows_total, cap = _merge_params(plan, ni, no)
     if plan.window_wide > rows_total * 128:
@@ -374,20 +382,34 @@ def phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
             f"window_wide={plan.window_wide} is wider than the build side "
             f"({rows_total * 128} slots): use a single-class plan"
         )
-    bhk, bval = _merge_sort_side(inner_keys, inner_vals, rows_total * 128,
-                                 plan.factor)
-    ohk, ov = _merge_sort_probe(outer_keys, outer_vals, cap,
-                                plan.probe_chunks, plan.factor)
+    bhk, bval = run("partition_build", _merge_sort_side, inner_keys,
+                    inner_vals, rows_total * 128, plan.factor)
+    ohk, ov = run("partition_probe", _merge_sort_probe, outer_keys,
+                  outer_vals, cap, plan.probe_chunks, plan.factor)
     wide = None
     if plan.window_wide:
         wcap = plan.wide_cap or max(8, cap // tile // 16)
-        wrow, overflow, wide = _merge_windows(
-            bhk, ohk, tile, window, rows_total,
+        wrow, overflow, wide = run(
+            "windows", _merge_windows, bhk, ohk, tile, window, rows_total,
             window_wide=plan.window_wide, wide_cap=wcap)
     else:
-        wrow, overflow = _merge_windows(bhk, ohk, tile, window, rows_total)
-    return _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan, tile,
-                        window, wide)
+        wrow, overflow = run("windows", _merge_windows, bhk, ohk, tile,
+                             window, rows_total)
+    return run("probe", _merge_probe, bhk, bval, ohk, ov, wrow, overflow,
+               plan, tile, window, wide)
+
+
+def phj_join_merge_staged(inner_keys, inner_vals, outer_keys, outer_vals,
+                          plan: JoinPlan, timer) -> JoinResult:
+    """The merge pipeline as four separately timed stages
+    (partition_build / partition_probe / windows / probe), the TIMELOG
+    analog (phj.cpp:1712-1927): phase boundaries land in
+    timer.timeline, per-phase seconds in timer.phases.  The same stages
+    as phj_join_merge, so the result is equal slot for slot; each stage
+    boundary adds a device synchronize.  The geometry is pinned: a
+    window overflow is counted in build_counts, not re-planned."""
+    return phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
+                          plan, timer)
 
 
 def _padded_probe(plan: JoinPlan, pk, tk, tv, tpid, tile: int,
@@ -612,14 +634,61 @@ def join(inner_keys, inner_vals, outer_keys, outer_vals,
 
 def materialize(res: JoinResult):
     """Matched rows as host (keys, vals, tabs) numpy uint32 arrays.
-    Requires match counts <= 1 (unique build keys); an empty result gives
-    three empty arrays, as the JAX package's max(initial=0) does."""
+    Requires match counts <= 1 (unique build keys); for duplicate-key
+    builds use materialize_expanded.  An empty result gives three empty
+    arrays, as the JAX package's max(initial=0) does."""
     mc = res.match_cnts
     if mc.numel() and int(mc.max()) > 1:
         raise ValueError(
-            "multi-match rows present; full M:N materialization is not "
-            "ported yet"
+            "multi-match rows present; use materialize_expanded"
         )
     m = mc == 1
     return (to_numpy_u32(res.probe_keys[m]), to_numpy_u32(res.probe_vals[m]),
             to_numpy_u32(res.match_vals[m]))
+
+
+def materialize_expanded(res: JoinResult, inner_keys, inner_vals,
+                         block_rows: int = 0):
+    """Full M:N materialization: every (probe row, matching build row)
+    pair, for builds with duplicate keys.
+
+    The aligned result carries exact per-probe match counts; the rows
+    come from the expansion (ops/expand.py) of the matched probe rows
+    against the build relation (`inner_keys`, `inner_vals`: numpy uint32
+    or int32 bit tensors), on the result's device.  Returns (keys, vals,
+    tabs) host uint32 arrays of exactly sum(match_cnts) rows; an empty
+    result gives three empty arrays.
+
+    block_rows > 0 streams the expansion through blocks of consecutive
+    matched probe rows whose output fits `block_rows` (auto-raised to
+    the largest single-row multiplicity; ops/expand.py greedy_blocks),
+    with the outputs concatenated on the host: the form for expansions
+    larger than device memory.  The JAX package pads every block to one
+    capacity so one compiled program serves them all; here a block
+    expands at its own size, and the rows are the same."""
+    from ..ops.expand import (
+        build_side,
+        expand_join,
+        greedy_blocks,
+        matched_rows,
+    )
+
+    pk, pv, counts = matched_rows(res)
+    total = int(counts.sum())
+    if total == 0:
+        e = np.zeros(0, np.uint32)
+        return e, e.copy(), e.copy()
+    ik, iv = build_side(inner_keys, inner_vals, pk.device)
+    if not block_rows or total <= block_rows:
+        blocks = [(0, len(counts), total)]
+    else:
+        blocks = greedy_blocks(counts, max(block_rows, int(counts.max())))
+    outs = []
+    for start, stop, blk_total in blocks:
+        got, *cols = expand_join(ik, iv, pk[start:stop], pv[start:stop],
+                                 blk_total)
+        if int(got) != blk_total:
+            raise RuntimeError(f"expansion gave {int(got)} rows for a "
+                               f"block of {blk_total} matches")
+        outs.append([to_numpy_u32(c) for c in cols])
+    return tuple(np.concatenate(c) for c in zip(*outs))

@@ -6,7 +6,7 @@ the JAX package's generator for the same arguments
 from __future__ import annotations
 
 from .. import native
-from ..relation import Relation
+from ..relation import Relation, save_relation
 from . import _pygen
 
 
@@ -56,3 +56,18 @@ def generate(
     return _pygen.generate_py(
         seed, inner_tuples, outer_tuples, selc, zipf, mode, factors
     )
+
+
+def generate_to_dir(
+    directory: str,
+    seed: int,
+    inner_tuples: int,
+    outer_tuples: int,
+    **kw,
+) -> dict:
+    """The `write` driver: generate and persist ik_/iv_/ok_/ov_<N>.txt
+    in `directory`; returns the generation's meta."""
+    inner, outer, meta = generate(seed, inner_tuples, outer_tuples, **kw)
+    save_relation(inner, "inner", directory)
+    save_relation(outer, "outer", directory)
+    return meta

@@ -681,3 +681,94 @@ def test_npj_join_on_card_matches_cpu(cuda, order):
         assert g.device.type == "cuda"
         assert torch.equal(g.cpu(), w)
     assert int(got[-2].max()) > 1
+
+
+def _mn_cols(seed=91, ni=6000, no=60000, distinct=2000):
+    rng = np.random.default_rng(seed)
+    ik = rng.integers(1, 2**32, distinct, dtype=np.uint32)[
+        rng.integers(0, distinct, ni)]
+    ik[:40] = 0xFFFFFFFF
+    iv = rng.integers(2**32 - 2**20, 2**32, ni, dtype=np.uint32)
+    ok = np.concatenate([ik[rng.integers(0, ni, no - no // 4)],
+                         rng.integers(1, 2**32, no // 4, dtype=np.uint32)])
+    ov = rng.integers(0, 2**32, no, dtype=np.uint32)
+    return ik, iv, ok, ov
+
+
+def test_expansion_and_aggregates_on_card_match_cpu(cuda):
+    """materialize_expanded, the M:N aggregate, the aligned aggregate and
+    the chunked aggregate on the card (scatters and int64 cumsums there)
+    equal the CPU runs slot for slot."""
+    from hash_join_codes_knl_tpu_torch.ops import aggregate as agg
+
+    cols = _mn_cols()
+    res_c, _ = phj.join(*cols, device=cuda)
+    res_h, _ = phj.join(*cols, device="cpu")
+    for kw in ({}, {"block_rows": 5000}):
+        for g, w in zip(phj.materialize_expanded(res_c, *cols[:2], **kw),
+                        phj.materialize_expanded(res_h, *cols[:2], **kw)):
+            np.testing.assert_array_equal(g, w)
+    for kw in ({}, {"block_rows": 4096, "partial_budget": 128}):
+        got = agg.aggregate_join_result_expanded(res_c, *cols[:2], **kw)
+        want = agg.aggregate_join_result_expanded(res_h, *cols[:2], **kw)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    k, v = u32_to_device(cols[2], cuda), u32_to_device(cols[3], cuda)
+    k[::13] = 0
+    for name, kw in (("hash_aggregate", {}),
+                     ("hash_aggregate_chunked",
+                      {"chunks": 8, "partial_cap": 4096}),
+                     ("hash_aggregate_auto",
+                      {"chunks": 8, "partial_cap": 1024})):
+        got = getattr(agg, name)(k, v, **kw)
+        want = getattr(agg, name)(k.cpu(), v.cpu(), **kw)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), name
+
+
+def test_staged_validate_and_cli_on_card(cuda, tmp_path, capsys):
+    """The staged merge pipeline equals the fused one on the card; the
+    checks pass there with the CPU run's stats; the CLI's phj and npj on
+    the card (the default device) print the CPU run's join_tuples and
+    AGGREGATE and CHECK OK lines."""
+    import json
+
+    from hash_join_codes_knl_tpu_torch.cli import main
+    from hash_join_codes_knl_tpu_torch.engine.validate import (
+        validate_join_result,
+    )
+    from hash_join_codes_knl_tpu_torch.utils.timing import PhaseTimer
+
+    inner, outer, _ = generate(seed=5, inner_tuples=50_000,
+                               outer_tuples=400_000, mode="uniform")
+    cols = [u32_to_device(c, cuda) for c in
+            (inner.keys, inner.vals, outer.keys, outer.vals)]
+    plan = plan_join(50_000, 400_000)
+    timer = PhaseTimer()
+    staged = phj.phj_join_merge_staged(*cols, plan, timer)
+    fused = phj.phj_join_merge(*cols, plan)
+    assert _equal([staged.probe_keys, staged.match_vals, staged.match_cnts,
+                   staged.build_counts],
+                  [fused.probe_keys, fused.match_vals, fused.match_cnts,
+                   fused.build_counts])
+    assert list(timer.phases) == ["partition_build", "partition_probe",
+                                  "windows", "probe"]
+    host, _ = phj.join(*(c.cpu() for c in cols), plan)
+    assert validate_join_result(staged, outer.keys, plan) == \
+        validate_join_result(host, outer.keys, plan)
+    assert main(["write", "1", "400000", "50000", "--dir",
+                 str(tmp_path)]) == 0
+    capsys.readouterr()
+    for argv in (["phj", "--check", "--aggregate", "--timelog"],
+                 ["npj", "--sorted-order"]):
+        runs = []
+        for device in ([], ["--device", "cpu"]):
+            assert main([argv[0], "1", "400000", "50000", "--dir",
+                         str(tmp_path), "--json", *argv[1:], *device]) == 0
+            cap = capsys.readouterr()
+            runs.append((json.loads(cap.out.strip().splitlines()[-1]),
+                         [line for line in cap.err.splitlines()
+                          if line.startswith(("CHECK", "AGGREGATE"))]))
+        (card, card_lines), (cpu, cpu_lines) = runs
+        assert card["join_tuples"] == cpu["join_tuples"] == 400_000
+        assert card_lines == cpu_lines
+        if argv[0] == "phj":
+            assert card["hbm_peak_source"] != "cpu (nominal DDR)"

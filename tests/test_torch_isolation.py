@@ -101,6 +101,35 @@ def test_join_runs_without_jax_modules():
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-2000:])
 
 
+def test_cli_runs_without_jax_modules(tmp_path):
+    """The CLI, run as a module: write, then phj with --check,
+    --aggregate and --timelog, and npj, on the CPU; no module of the
+    JAX package is loaded."""
+    code = (
+        "import sys\n"
+        "from hash_join_codes_knl_tpu_torch.cli import main\n"
+        f"d = {str(tmp_path)!r}\n"
+        "assert main(['write', '1', '8192', '1024', '--dir', d]) == 0\n"
+        "for argv in (['phj', '--check', '--aggregate', '--timelog'],\n"
+        "             ['npj', '--sorted-order']):\n"
+        "    assert main([argv[0], '1', '8192', '1024', '--dir', d,\n"
+        "                 '--device', 'cpu', *argv[1:]]) == 0\n"
+        "bad = [m for m in sys.modules if m == 'hash_join_codes_knl_tpu' "
+        "or m.startswith('hash_join_codes_knl_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-2000:])
+    proc = subprocess.run(
+        [sys.executable, "-m", "hash_join_codes_knl_tpu_torch.cli", "phj",
+         "1", "4096", "512", "--device", "cpu", "--json"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert '"join_tuples": 4096' in proc.stdout
+
+
 def test_package_import_is_lazy():
     code = (
         "import sys, hash_join_codes_knl_tpu_torch as hjt\n"
