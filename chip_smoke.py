@@ -16,7 +16,14 @@ with --timelog --check --aggregate (its phase seconds, roofline shares
 and aggregate group count).  Then the hash aggregate's three bench row
 shapes on the headline's probe columns.  The merge path's M:N join is
 also expanded (materialize_expanded) and aggregated, against the numpy
-oracle.
+oracle.  The plan-time chunk-count tuner runs first, with a fresh cache
+file that every later plan reads.  Last, the out-of-core path:
+stream_join at 16M x 1000M (16 chunks of 64M probe rows from host RAM,
+exact, with its copy and compute overlap), its resume after a corrupted
+chunk (4M x 64M, digests against the oracle), grace_join at 256M x 1000M
+(64 partitions, exact) and its rerun from the partition files and the
+journal, both out-of-core CLI modes, and the multi-column joins (1M x 8M
+M:N, four modes, u64 and two-column keys) against a numpy oracle.
 
     python3 chip_smoke.py
 
@@ -39,7 +46,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1506,6 +1515,498 @@ def phase_aggregates(cols) -> None:
            "groups")
 
 
+# the out-of-core shapes: the stream_join_16Mx1000M and
+# grace_join_256Mx1000M bench rows (scripts/bench_stream.py,
+# scripts/bench_grace.py: build keys distinct, the probe side uniform
+# picks from them), the resume check's and the CLI's 4M x 64M, and the
+# multi-column joins' 1M x 8M
+STREAM = (16_000_000, 1_000_000_000, 64_000_000)  # build, probe, chunk
+GRACE = (256_000_000, 1_000_000_000, 6, 32_000_000)  # + f_bits, chunk
+RESUME = (4_000_000, 64_000_000, 16_000_000)
+COLUMNS = (1_000_000, 8_000_000)
+
+
+def phase_tuner(cols) -> None:
+    """The plan-time tuner with the fresh cache file main() names
+    (HJK_TUNE_CACHE): the headline plan's candidates (plan_join, so the
+    merge path's headline runs under the tuned plan) and the 64M-row
+    stream chunk's, each printed from the cache with its candidate times;
+    a second call hits the cache (no sort timed).  Then the headline join
+    at the untuned default (64 chunks) and at the pick, in turns (64,
+    pick, pick, 64), each a median of 3."""
+    from hash_join_codes_knl_tpu_torch.engine import tune
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.engine.phj import join
+
+    timed = []
+    real = tune._time_sort
+
+    def counted(*a):
+        timed.append(a[1])
+        return real(*a)
+
+    tune._time_sort = counted
+    try:
+        for label, n, call in (
+                (f"plan_join {HEADLINE[0]} x {HEADLINE[1]}", HEADLINE[1],
+                 lambda: plan_join(*HEADLINE).probe_chunks),
+                (f"tuned_probe_chunks({STREAM[2]})", STREAM[2],
+                 lambda: tune.tuned_probe_chunks(STREAM[2]))):
+            t0 = time.perf_counter()
+            pick = call()
+            first_s = time.perf_counter() - t0
+            n_timed = len(timed)
+            t0 = time.perf_counter()
+            again = call()
+            again_s = time.perf_counter() - t0
+            if again != pick or len(timed) != n_timed or not n_timed:
+                raise AssertionError(f"tuner {label}: picked {pick} then "
+                                     f"{again}; sorts timed {timed}")
+            with open(os.environ["HJK_TUNE_CACHE"]) as f:
+                entries = {k: v for k, v in json.load(f).items()
+                           if k.startswith(f"{n}|")}
+            _print(f"phase tuner: {label}: probe_chunks {pick} in "
+                   f"{first_s:.3f} s ({n_timed} sorts timed in all so far); "
+                   f"second call {again_s:.6f} s, a cache hit; cache "
+                   f"{entries}")
+    finally:
+        tune._time_sort = real
+    plan = plan_join(STREAM[0], STREAM[2])
+    _print(f"phase tuner: the stream chunk's plan {plan} (c_win below every "
+           f"candidate: untimed)")
+    tuned = plan_join(*HEADLINE)
+    plans = {64: plan_join(*HEADLINE, probe_chunks=64),
+             tuned.probe_chunks: tuned}
+    for C, plan in plans.items():  # checked warm-ups
+        res, final = join(*cols, plan)
+        if int(res.join_tuples) != HEADLINE[1] or final != plan:
+            raise AssertionError(f"tuner: headline at C={C} gave "
+                                 f"{int(res.join_tuples)} tuples, plan "
+                                 f"{final}")
+        del res
+    runs = [(C, _median_s(lambda: join(*cols, plans[C])[0])[0])
+            for C in (64, tuned.probe_chunks, tuned.probe_chunks, 64)]
+    _print(f"phase tuner: headline join medians of 3 at (probe_chunks, s), "
+           f"in turns: {runs}")
+
+
+@contextlib.contextmanager
+def _host_seconds(module, names):
+    """Wrap module.<name> for each of `names` while the block runs;
+    yields {name: host seconds spent in its calls, summed}."""
+    spent = dict.fromkeys(names, 0.0)
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[n](*a, **kw)
+            finally:
+                spent[n] += time.perf_counter() - t0
+        return timed
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(module, n, real[n])
+
+
+def _picks(dev, ik: np.ndarray, no: int, seed: int, factor: int):
+    """`no` uniform picks from the build keys `ik`, made on the card in
+    slices (scripts/bench_stream.py's probe side), values key * factor:
+    host numpy uint32 (keys, values)."""
+    from hash_join_codes_knl_tpu_torch.utils.hashing import (
+        mul_u32,
+        to_numpy_u32,
+        u32_to_device,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ik_d = u32_to_device(ik, dev)
+    ok = np.empty(no, np.uint32)
+    ov = np.empty(no, np.uint32)
+    step = 100_000_000
+    for s in range(0, no, step):
+        n = min(step, no - s)
+        k = ik_d[torch.randint(0, len(ik), (n,), device=dev, generator=g)]
+        ok[s:s + n] = to_numpy_u32(k)
+        ov[s:s + n] = to_numpy_u32(mul_u32(k, factor))
+    return ok, ov
+
+
+def _transfer_line(res) -> str:
+    t = res.transfer
+    return (f"H2D {t['h2d_bytes'] / 1e9:.3f} GB in {t['h2d_ms']:.3f} ms of "
+            f"copy-stream time ({t['h2d_bytes'] / t['h2d_ms'] / 1e6:.2f} "
+            f"GB/s); {t['hidden_ms']:.3f} ms of it overlapped the chunks' "
+            f"compute ({100 * t['hidden_ms'] / t['h2d_ms']:.1f}%), compute "
+            f"{t['compute_ms']:.3f} ms")
+
+
+def _outofcore_stream(dev) -> None:
+    """stream_join at the stream_join_16Mx1000M row's shape, twice: 16
+    chunks of 64M probe rows from host RAM.  Every probe row picks one of
+    16M distinct build keys (np.unique), so the exact count is the probe
+    row count, and each chunk's its row count."""
+    from hash_join_codes_knl_tpu_torch.engine import stream
+    from hash_join_codes_knl_tpu_torch.engine.stream import stream_join
+
+    ni, no, chunk = STREAM
+    (inner, _), gen_s = _generate(ni, ni, seed=42, mode="ref")
+    if np.unique(inner.keys).size != ni:
+        raise AssertionError("stream: build keys not distinct")
+    t0 = time.perf_counter()
+    ok, ov = _picks(dev, inner.keys, no, 7, 0x85EBCA77)
+    pick_s = time.perf_counter() - t0
+    for run in (1, 2):
+        before = _launches()
+        torch.cuda.synchronize()
+        with _host_seconds(stream, ["_fill"]) as host:
+            t0 = time.perf_counter()
+            res = stream_join(inner.keys, inner.vals, ok, ov, chunk,
+                              device=dev)
+            dt = time.perf_counter() - t0
+        d = _delta(before)
+        bad = [c.index for c in res.chunks if c.join_tuples != c.rows]
+        if res.join_tuples != no or len(res.chunks) != 16 or bad:
+            raise AssertionError(f"stream: join_tuples {res.join_tuples} != "
+                                 f"{no}, {len(res.chunks)} chunks, chunks "
+                                 f"{bad} off")
+        if d["flat_to_rows"] == 0 or d["merge_probe_gather"] == 0:
+            raise AssertionError(f"stream: K1/K3 not launched: {d}")
+        _print(f"phase outofcore: stream_join {ni} x {no} run {run}: "
+               f"{dt:.6f} s = {no / dt:.1f} probe-tuples/s; join_tuples "
+               f"{res.join_tuples} exact (the probe row count: every row "
+               f"picks one of {ni} distinct build keys); {len(res.chunks)} "
+               f"chunks of {chunk}, window {res.plan.window}, tile "
+               f"{res.plan.tile}, probe_chunks {res.plan.probe_chunks}; "
+               f"{_transfer_line(res)}; host copies into the pinned "
+               f"buffers {host['_fill']:.3f} s; launches {d}")
+    _print(f"phase outofcore: stream data: build generated in {gen_s:.3f} "
+           f"s, probe picks on the card and copied to host RAM in "
+           f"{pick_s:.3f} s")
+
+
+def _chunk_rows(store):
+    """on_chunk: the matched rows of a live chunk (unique build keys)."""
+    from hash_join_codes_knl_tpu_torch.engine.phj import materialize
+
+    def on_chunk(cm, res):
+        store.append(materialize(res))
+    return on_chunk
+
+
+def _outofcore_resume(dev, want) -> None:
+    """Stream resume at 4M x 64M, chunks of 16M, with a spill directory:
+    the first run's rows, then a rerun after one chunk's match file is
+    corrupted (3 chunks resume, their probe columns replayed on the card;
+    1 recomputes): both digests against join_oracle's (`want`, a future
+    from the merge path's host threads, same relation)."""
+    from hash_join_codes_knl_tpu_torch.engine.oracle import multiset_digest
+    from hash_join_codes_knl_tpu_torch.engine.stream import (
+        SpilledChunk,
+        replay_probe_columns,
+        stream_join,
+    )
+
+    ni, no, chunk = RESUME
+    (inner, outer), _ = _generate(ni, no, seed=42, mode="uniform")
+    cols = (inner.keys, inner.vals, outer.keys, outer.vals)
+    with tempfile.TemporaryDirectory() as d:
+        live = []
+        first = stream_join(*cols, chunk, spill_dir=d, device=dev,
+                            on_chunk=_chunk_rows(live))
+        with open(os.path.join(d, "chunk_000002_mval.bin"), "r+b") as f:
+            f.seek(4 * 12345)
+            byte = f.read(1)[0]
+            f.seek(4 * 12345)
+            f.write(bytes([byte ^ 0xFF]))
+        rows = []
+        live_cb = _chunk_rows(rows)
+
+        def on_chunk(cm, payload):
+            if not isinstance(payload, SpilledChunk):
+                return live_cb(cm, payload)
+            sl = slice(cm.index * chunk, (cm.index + 1) * chunk)
+            pk, pv = replay_probe_columns(outer.keys[sl], outer.vals[sl],
+                                          first.plan,
+                                          len(payload.match_vals), dev)
+            m = payload.match_cnts == 1
+            rows.append((pk[m], pv[m], payload.match_vals[m]))
+
+        t0 = time.perf_counter()
+        second = stream_join(*cols, chunk, spill_dir=d, device=dev,
+                             on_chunk=on_chunk)
+        dt = time.perf_counter() - t0
+    resumed = [c.resumed for c in second.chunks]
+    digests = [multiset_digest(*(np.concatenate(c) for c in zip(*r)))
+               for r in (live, rows)]
+    want = want.result()
+    if resumed != [True, True, False, True] or digests != [want, want] or \
+            second.join_tuples != first.join_tuples:
+        raise AssertionError(f"stream resume: resumed {resumed}, digests "
+                             f"{digests} against the oracle's {want}")
+    _print(f"phase outofcore: stream resume {ni} x {no}, chunks of {chunk}: "
+           f"after corrupting chunk 2's match file, resumed {resumed} "
+           f"(rerun {dt:.3f} s with the replays); the live run's rows and "
+           f"the rerun's (3 replayed, 1 live) both digest to join_oracle's "
+           f"{want}")
+
+
+def _grace_data(dev, ni: int, no: int):
+    """The grace_join_256Mx1000M row's data (scripts/bench_grace.py),
+    made on the card: ni distinct nonzero build keys (draws made unique,
+    then a random permutation), values key * 0x9E3779B1; no probe rows
+    picked from them, values key * 0x85EBCA77.  Host numpy columns."""
+    from hash_join_codes_knl_tpu_torch.utils.hashing import (
+        mul_u32,
+        to_numpy_u32,
+        u32_to_i32,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    u = torch.unique(torch.randint(1, 2**32, (int(ni * 1.12),),
+                                   device=dev, generator=g))
+    if u.numel() < ni:
+        raise AssertionError(f"grace: {u.numel()} distinct draws < {ni}")
+    keys = u32_to_i32(u[torch.randperm(u.numel(), device=dev,
+                                       generator=g)[:ni]])
+    del u
+    ik = to_numpy_u32(keys)
+    iv = to_numpy_u32(mul_u32(keys, 0x9E3779B1))
+    del keys
+    ok, ov = _picks(dev, ik, no, 12, 0x85EBCA77)
+    return ik, iv, ok, ov
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+# grace_join's host steps, timed from outside: the input fingerprints,
+# the wait for each pass and the copy of its live rows to the host, the
+# file appends (with their checksums), the host skew split, the phase-2
+# file reads
+GRACE_SPLIT = ["_side_fingerprint", "_device_fragments", "_append_fragments",
+               "_host_partition_fragments", "_read_u32"]
+
+
+def _outofcore_grace(dev) -> None:
+    """grace_join at the grace_join_256Mx1000M row's shape (f_bits 6,
+    chunks of 32M), then a rerun on the same spill directory: both sides
+    reused, every partition resumed from the journal.  The probe side is
+    cut only where the temp directory's disk or the host's memory cannot
+    hold it (printed)."""
+    from hash_join_codes_knl_tpu_torch.engine import grace, stream
+    from hash_join_codes_knl_tpu_torch.engine.grace import grace_join
+
+    ni, no, f_bits, chunk = GRACE
+    root = tempfile.gettempdir()
+    free, avail = shutil.disk_usage(root).free, _mem_available()
+    # partition files: 8 bytes a row of both sides; host arrays the same
+    fit = min(free - 2**30, avail - 16 * 2**30) // 8 - ni
+    _print(f"phase outofcore: grace temp dir {root}: {free / 2**30:.1f} GiB "
+           f"free on its disk, {avail / 2**30:.1f} GiB of host memory "
+           f"available; the files need {8 * (ni + no) / 2**30:.1f} GiB")
+    if fit < no:
+        no = max(ni, int(fit) // chunk * chunk)
+        _print(f"phase outofcore: grace probe side CUT to {no} rows to fit")
+    t0 = time.perf_counter()
+    ik, iv, ok, ov = _grace_data(dev, ni, no)
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        runs = []
+        for _ in range(2):
+            before = _launches()
+            torch.cuda.synchronize()
+            with _host_seconds(grace, GRACE_SPLIT) as host, \
+                    _host_seconds(stream, ["_fill"]) as fill:
+                t0 = time.perf_counter()
+                res = grace_join(ik, iv, ok, ov, f_bits=f_bits,
+                                 chunk_rows=chunk, spill_dir=d, device=dev)
+                dt = time.perf_counter() - t0
+            split = {k: round(v, 3) for k, v in {**host, **fill}.items()}
+            runs.append((dt, res, _delta(before), split))
+        spill_gb = sum(e.stat().st_size for e in os.scandir(d)) / 1e9
+    (dt, res, d1, split), (dt2, res2, _, split2) = runs
+    F = 1 << f_bits
+    n_live = sum(1 for m in res.partitions if m.build_rows and m.probe_rows)
+    chunks = -(-ni // chunk) + -(-no // chunk)
+    probe_kernels = {k: d1[k] for k in ("merge_probe", "merge_probe_gather")}
+    if res.join_tuples != no or res.reused_sides != {"build": False,
+                                                     "probe": False}:
+        raise AssertionError(f"grace: join_tuples {res.join_tuples} != {no} "
+                             f"or sides reused {res.reused_sides}")
+    if d1["radix_partition"] < chunks or not sum(probe_kernels.values()):
+        raise AssertionError(f"grace: the radix pass or the partition "
+                             f"probes not launched: {d1}")
+    if res2.join_tuples != no or res2.resumed_partitions != n_live or \
+            res2.reused_sides != {"build": True, "probe": True}:
+        raise AssertionError(f"grace rerun: {res2.join_tuples} tuples, "
+                             f"{res2.resumed_partitions} of {n_live} resumed, "
+                             f"sides reused {res2.reused_sides}")
+    _print(f"phase outofcore: grace_join {ni} x {no}, f_bits {f_bits}, "
+           f"chunks of {chunk}: {dt:.3f} s (partition "
+           f"{res.seconds['partition']:.3f} s, join "
+           f"{res.seconds['join']:.3f} s) = {no / dt:.1f} probe-tuples/s; "
+           f"join_tuples {res.join_tuples} exact (every probe row picks one "
+           f"distinct build key); {F} partitions, largest build "
+           f"{max(m.build_rows for m in res.partitions)}, largest probe "
+           f"{max(m.probe_rows for m in res.partitions)}; {spill_gb:.3f} GB "
+           f"of partition files; radix-pass launches {d1['radix_partition']} "
+           f"for {chunks} chunks; chunks on the host skew path "
+           f"{res.host_skew_chunks}; partition probes {probe_kernels}; data "
+           f"made in {gen_s:.3f} s; host seconds inside {split}")
+    _print(f"phase outofcore: grace rerun on the same spill dir: {dt2:.3f} s "
+           f"(partition {res2.seconds['partition']:.3f} s, join "
+           f"{res2.seconds['join']:.3f} s); sides reused "
+           f"{res2.reused_sides}, {res2.resumed_partitions} of {n_live} live "
+           f"partitions resumed from the journal, join_tuples "
+           f"{res2.join_tuples}; host seconds inside {split2}")
+
+
+def _outofcore_cli() -> None:
+    """Both out-of-core CLI modes through cli.main at 4M x 64M (generated
+    in memory, seed 42); join_tuples against the generator's count."""
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
+
+    ni, no = RESUME[:2]
+    want = expected_join_tuples(ni, no)
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in (["--stream-chunk-rows", str(RESUME[2]), "--spill-dir",
+                       os.path.join(tmp, "stream")],
+                      ["--grace-bits", "4", "--spill-dir",
+                       os.path.join(tmp, "grace")]):
+            argv = ["phj", "1", str(no), str(ni), "--json", "--dir", tmp,
+                    *extra]
+            _, out, _ = _cli(argv)
+            if out["join_tuples"] != want:
+                raise AssertionError(f"cli {argv}: join_tuples "
+                                     f"{out['join_tuples']} != {want}")
+            _print(f"phase outofcore: cli {' '.join(argv[:4] + extra[:2])}: "
+                   f"{out}")
+
+
+def _pair_oracle(ik: np.ndarray, ok: np.ndarray):
+    """(outer index << 32 | inner index) of every matching pair, sorted,
+    and each outer row's match count, from np.searchsorted."""
+    order = np.argsort(ik, kind="stable")
+    sk = ik[order]
+    lo = np.searchsorted(sk, ok, "left")
+    cnt = np.searchsorted(sk, ok, "right") - lo
+    o = np.repeat(np.arange(len(ok), dtype=np.uint64), cnt)
+    first = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt)
+    i = order[first + np.arange(len(o))].astype(np.uint64)
+    return np.sort(o << np.uint64(32) | i), cnt
+
+
+def _pairs(out) -> np.ndarray:
+    return np.sort(out["ov"].astype(np.uint64) << np.uint64(32)
+                   | out["iv"].astype(np.uint64))
+
+
+def _outofcore_columns(dev) -> None:
+    """join_columns at 1M x 8M on an M:N build (the keys drawn from a
+    domain of 500K), a quarter of the probes drawn from the whole domain
+    (some miss), the four modes; then join_columns_u64 and a two-column
+    join_columns_multi; each against the searchsorted oracle: the sorted
+    (outer row, inner row) pairs, and the outer rows with and without a
+    match."""
+    from hash_join_codes_knl_tpu_torch.engine.columns import (
+        join_columns,
+        join_columns_multi,
+        join_columns_u64,
+    )
+
+    ni, no = COLUMNS
+    rng = np.random.default_rng(45)
+
+    def mn(domain):
+        keys = domain[rng.integers(0, domain.size, ni)]
+        probe = np.concatenate([keys[rng.integers(0, ni, no * 3 // 4)],
+                                domain[rng.integers(0, domain.size,
+                                                    no - no * 3 // 4)]])
+        return keys, probe
+
+    ik, ok = mn(rng.integers(1, 2**32, 500_000, dtype=np.uint32))
+    inner_cols = {"iv": np.arange(ni, dtype=np.int64),
+                  "w": rng.random(ni)}
+    outer_cols = {"ov": np.arange(no, dtype=np.int64)}
+    want, cnt = _pair_oracle(ik, ok)
+    semi, anti = np.flatnonzero(cnt > 0), np.flatnonzero(cnt == 0)
+    times = {}
+    for how in ("inner", "left", "semi", "anti"):
+        t0 = time.perf_counter()
+        out, _ = join_columns(ik, inner_cols, ok, outer_cols, how=how,
+                              left_fill=-1, device=dev)
+        times[how] = round(time.perf_counter() - t0, 3)
+        if how in ("semi", "anti"):
+            same = np.array_equal(np.sort(out["ov"]),
+                                  semi if how == "semi" else anti)
+        else:
+            m = out["iv"] >= 0
+            same = (np.array_equal(_pairs({k: v[m] for k, v in out.items()}),
+                                   want)
+                    and np.array_equal(out["w"][m],
+                                       inner_cols["w"][out["iv"][m]])
+                    and np.array_equal(np.sort(out["ov"][~m]),
+                                       anti if how == "left" else anti[:0]))
+        if not same:
+            raise AssertionError(f"join_columns how={how} differs from the "
+                                 "searchsorted oracle")
+    ik64, ok64 = mn(rng.integers(1, 2**64, 500_000, dtype=np.uint64))
+    t0 = time.perf_counter()
+    out, _ = join_columns_u64(ik64, {"iv": np.arange(ni)}, ok64,
+                              {"ov": np.arange(no)}, device=dev)
+    times["u64"] = round(time.perf_counter() - t0, 3)
+    want64, _ = _pair_oracle(ik64, ok64)
+    a = rng.integers(0, 2**20, 500_000).astype(np.int32)
+    b = rng.integers(-2**20, 2**20, 500_000).astype(np.int64)
+    tup = (a.astype(np.uint64) << np.uint64(32)) | (b + 2**20).astype(
+        np.uint64)
+    ikt, okt = mn(np.arange(tup.size))
+    t0 = time.perf_counter()
+    out_m, _ = join_columns_multi((a[ikt], b[ikt]), {"iv": np.arange(ni)},
+                                  (a[okt], b[okt]), {"ov": np.arange(no)},
+                                  device=dev)
+    times["multi"] = round(time.perf_counter() - t0, 3)
+    want_m, _ = _pair_oracle(tup[ikt], tup[okt])
+    if not (np.array_equal(_pairs(out), want64)
+            and np.array_equal(_pairs(out_m), want_m)):
+        raise AssertionError("join_columns_u64 or join_columns_multi differs "
+                             "from the searchsorted oracle")
+    _print(f"phase outofcore: join_columns {ni} x {no} M:N ({want.size} "
+           f"pairs, {anti.size} unmatched outer rows), inner/left/semi/anti, "
+           f"join_columns_u64 ({want64.size} pairs) and two-column "
+           f"join_columns_multi ({want_m.size} pairs) equal the searchsorted "
+           f"oracle; seconds {times}")
+
+
+def phase_outofcore(dev, want_4m) -> None:
+    """The out-of-core slice's path: stream_join, its resume, grace_join
+    and its rerun, both CLI modes, the multi-column joins."""
+    _outofcore_stream(dev)
+    _stamp("the stream join")
+    torch.cuda.empty_cache()
+    _outofcore_resume(dev, want_4m)
+    _stamp("the stream resume")
+    _outofcore_grace(dev)
+    _stamp("the Grace join")
+    torch.cuda.empty_cache()
+    _outofcore_cli()
+    _stamp("the out-of-core CLI runs")
+    _outofcore_columns(dev)
+    _stamp("the multi-column joins")
+
+
 KERNELS = [
     ("flat_to_rows", "hash_join_codes_knl_tpu_torch/csrc/chunk_layout.cu",
      "hash_join_codes_knl_tpu/ops/chunk_layout.py:61"),
@@ -1529,6 +2030,7 @@ MERGE_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
 PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition"]
 NPJ_KERNELS = ["merge_probe"]
 CLI_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
+OUTOFCORE_KERNELS = ["flat_to_rows", "merge_probe_gather", "radix_partition"]
 
 
 def main() -> None:
@@ -1551,7 +2053,21 @@ def main() -> None:
            f"(nvcc {_build.build_info['seconds']:.3f} s)")
     for kernel, report in _ptxas_report(_build.build_info["ptxas"]):
         _print(f"phase build: ptxas {kernel}: {report}")
+    # the plan-time tuner's verdicts go to a fresh cache file, read by
+    # every plan of this run (the headline's included)
+    tune_dir = tempfile.mkdtemp()
+    os.environ["HJK_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
+    try:
+        _main_paths(dev)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    _print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
+
+def _main_paths(dev) -> None:
+    """Every path's runs, the launch counts and the kernels line."""
     from hash_join_codes_knl_tpu_torch.engine.config import plan_join
 
     data_h, gen_s = _generate(*HEADLINE, seed=42, mode="uniform")
@@ -1559,6 +2075,8 @@ def main() -> None:
     del data_h
     data_1m, _ = _generate(*SMALL, seed=41, mode="uniform")
     _stamp("the build and the generation of 16M x 256M and 1M x 8M")
+    phase_tuner(cols_h)
+    _stamp("the tuner")
     stats = phase_kernels(dev, _device_cols(data_1m, dev), cols_h)
     _stamp("the kernel checks")
     torch.cuda.empty_cache()
@@ -1576,6 +2094,8 @@ def main() -> None:
     # no timed phase runs beside the host threads: those before this
     # line are over, and the next one starts when the threads are done
     oracles = _start_oracles(data_1m)
+    # the out-of-core phase's resume check joins the same relation
+    want_4m = oracles["uniform_4m"][1]
     phase_joins(dev, oracles)
     concurrent.futures.wait([digest for _, digest in oracles.values()])
     _stamp("the merge path's digests")
@@ -1653,10 +2173,17 @@ def main() -> None:
     phase_aggregates(cols_h)
     _stamp("the aggregate timings")
     del cols_h
+    torch.cuda.empty_cache()
+
+    _set_launches()
+    phase_outofcore(dev, want_4m)
+    outofcore = _launches()
+    _print(f"launches, out-of-core path: {outofcore}")
     for path, names, got in (("merge", MERGE_KERNELS, merge),
                              ("padded", PADDED_KERNELS, padded),
                              ("npj", NPJ_KERNELS, npj),
-                             ("cli", CLI_KERNELS, cli)):
+                             ("cli", CLI_KERNELS, cli),
+                             ("out-of-core", OUTOFCORE_KERNELS, outofcore)):
         for name in names:
             if got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the "
@@ -1666,13 +2193,10 @@ def main() -> None:
     # (PERF.md says why, kernel by kernel), so library_ms is null
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=(merge[name] + padded[name] + npj[name]
-                              + cli[name]),
+                              + cli[name] + outofcore[name]),
                     library_ms=None, **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))
-    _print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,13 @@
 """The query engine's partitioned hash join (merge, padded and radix
-modes, the two-class window geometry), its no-partition hash join (NPJ),
-the M:N expansion, the hash aggregate and the single-device CLI
-(``python -m hash_join_codes_knl_tpu_torch.cli``) in PyTorch, with
-hand-written CUDA kernels for the NVIDIA H100.
+modes, the two-class window geometry, the plan-time chunk-count tuner),
+its no-partition hash join (NPJ), the out-of-core drivers (``stream_join``
+with a host-RAM probe side, ``grace_join`` with both sides in partition
+files, checkpoint and resume for both), multi-column joins
+(``join_columns*``), the M:N expansion, the hash aggregate and the
+single-device CLI (``python -m hash_join_codes_knl_tpu_torch.cli``) in
+PyTorch, with hand-written CUDA kernels for the NVIDIA H100.  Not ported
+yet: the distributed modes (the JAX package's ``parallel/``: CPRA, the
+multi-device NPJ and Grace), whose CLI forms exit 2.
 
 A port of ``hash_join_codes_knl_tpu`` (JAX/Pallas on a TPU), which stays
 the reference it is tested against.  This package imports no JAX and
@@ -25,7 +30,12 @@ _EXPORTS = {
     "NpjPlan": (".engine.npj", "NpjPlan"),
     "plan_npj": (".engine.npj", "plan_npj"),
     "npj_join": (".engine.npj", "npj_join"),
+    "stream_join": (".engine.stream", "stream_join"),
+    "grace_join": (".engine.grace", "grace_join"),
     "generate": (".relgen.generate", "generate"),
+    "join_columns": (".engine.columns", "join_columns"),
+    "join_columns_u64": (".engine.columns", "join_columns_u64"),
+    "join_columns_multi": (".engine.columns", "join_columns_multi"),
     "hash_aggregate": (".ops.aggregate", "hash_aggregate"),
     "hash_aggregate_chunked": (".ops.aggregate", "hash_aggregate_chunked"),
     "hash_aggregate_auto": (".ops.aggregate", "hash_aggregate_auto"),

@@ -11,8 +11,14 @@ the card by default, the CPU with ``--device cpu`` (the kernels' plain
 versions).  Without a card and without ``--device cpu`` a join exits 1
 with a message; it never carries on on the CPU.  <ratio> (the DDR/MCDRAM
 placement knob) is accepted for compatibility: one card has one memory
-tier.  Not ported yet, each refused with exit code 2: ``cpra``, ``npj``
-with <threads> > 1, ``--stream-chunk-rows`` and ``--grace-bits``.
+tier.  ``phj --stream-chunk-rows N [--spill-dir D]`` streams the probe
+side from host RAM (engine/stream.py, JSON keys ``chunks``,
+``resumed_chunks``, ``chunk_rows``, ``window``); ``phj --grace-bits B
+--spill-dir D [--stream-chunk-rows N]`` partitions both sides out of core
+(engine/grace.py, keys ``partitions``, ``max_build_partition``,
+``max_probe_partition``; without --spill-dir it exits 1).  Not ported
+yet, each refused with exit code 2: ``cpra``, and ``npj`` or
+``--grace-bits`` with <threads> > 1 (the distributed drivers).
 
 write generates ik_/iv_/ok_/ov_<N>.txt on the host; the join drivers
 load those files (falling back to in-memory generation when absent), run
@@ -77,15 +83,15 @@ def _finish(args, alg, timer, generated, join_tuples, extras=None):
     return 0
 
 
-def _report(alg, timer, outer_n, join_tuples, as_json, roofline=None):
+def _report(alg, timer, outer_n, join_tuples, as_json, extras=None):
     metrics = timer.metrics(
         algorithm=alg,
         outer_tuples=outer_n,
         join_tuples=join_tuples,
         tuples_per_s=round(outer_n / max(timer.total, 1e-9), 1),
     )
-    if roofline:
-        metrics.update(roofline)
+    if extras:
+        metrics.update(extras)
     if as_json:
         print(json.dumps(metrics))
     else:
@@ -123,12 +129,19 @@ def _parser():
     p.add_argument("--chunks", type=int, default=0,
                    help="cpra only (not ported yet)")
     p.add_argument("--stream-chunk-rows", type=int, default=0,
-                   help="phj out-of-core mode (not ported yet)")
+                   help="phj out-of-core mode: keep the probe side in "
+                        "host RAM and stream it through the card in "
+                        "chunks of this many rows (engine/stream.py); "
+                        "with --grace-bits, the partition pass's chunk")
     p.add_argument("--grace-bits", type=int, default=0,
-                   help="phj Grace mode (not ported yet)")
+                   help="phj Grace mode: both relations out of core, "
+                        "radix-partitioned into 2^B partition files, "
+                        "then joined partition by partition "
+                        "(engine/grace.py; needs --spill-dir)")
     p.add_argument("--spill-dir", default=None,
-                   help="with --stream-chunk-rows or --grace-bits (not "
-                        "ported yet)")
+                   help="with --stream-chunk-rows: spill per-chunk "
+                        "results there and resume completed chunks; "
+                        "with --grace-bits: the partition files")
     p.add_argument("--check", action="store_true",
                    help="phj: run the BG-debug-mode analog after the "
                         "join (oracle-free invariant re-checks: key "
@@ -169,8 +182,8 @@ def _refusal(args):
             (args.algorithm == "cpra", "cpra"),
             (args.algorithm == "npj" and args.threads > 1,
              "npj with <threads> > 1"),
-            (args.stream_chunk_rows > 0, "--stream-chunk-rows"),
-            (args.grace_bits > 0, "--grace-bits")):
+            (args.algorithm == "phj" and args.grace_bits > 0
+             and args.threads > 1, "--grace-bits with <threads> > 1")):
         if refused:
             return (f"{mode} is not ported yet to the PyTorch package; run "
                     "it with hash_join_codes_knl_tpu.cli")
@@ -224,10 +237,10 @@ def _npj(args, timer, inner, outer, device):
     return 0, int(mc.sum(dtype=torch.int64))
 
 
-def _plan(args, ni: int, no: int):
+def _plan(args, ni: int, no: int, device):
     from .engine.config import plan_join
 
-    plan = plan_join(ni, no)
+    plan = plan_join(ni, no, device=device)
     if args.config:
         with open(args.config) as f:
             overrides = json.load(f)
@@ -267,7 +280,7 @@ def _phj(args, timer, inner, outer, device):
     ik = timer.run("load_device", u32_to_device, inner.keys, device)
     iv = u32_to_device(inner.vals, device)
     ok, ov = (u32_to_device(c, device) for c in (outer.keys, outer.vals))
-    plan = _plan(args, len(ik), len(ok))
+    plan = _plan(args, len(ik), len(ok), device)
     staged = args.timelog and plan.probe_impl.startswith("merge")
     if staged:
         res = phj_join_merge_staged(ik, iv, ok, ov, plan, timer)
@@ -318,6 +331,39 @@ def _phj(args, timer, inner, outer, device):
     return 0, join_tuples, roofline
 
 
+def _out_of_core(args, timer, inner, outer, device):
+    """phj --grace-bits or --stream-chunk-rows: both relations stay on
+    the host; the drivers stage what they need.  Returns (exit code,
+    algorithm, join tuples, report extras)."""
+    if args.grace_bits > 0:
+        from .engine.grace import grace_join
+
+        if not args.spill_dir:
+            print("--grace-bits needs --spill-dir", file=sys.stderr)
+            return 1, None, None, None
+        gres = timer.run(
+            "grace_join", grace_join, inner.keys, inner.vals, outer.keys,
+            outer.vals, f_bits=args.grace_bits,
+            chunk_rows=args.stream_chunk_rows or 32_000_000,
+            spill_dir=args.spill_dir, device=device)
+        return 0, "phj-grace", gres.join_tuples, {
+            "partitions": 1 << gres.f_bits,
+            "max_build_partition": max(
+                (m.build_rows for m in gres.partitions), default=0),
+            "max_probe_partition": max(
+                (m.probe_rows for m in gres.partitions), default=0)}
+    from .engine.stream import stream_join
+
+    sres = timer.run("stream_join", stream_join, inner.keys, inner.vals,
+                     outer.keys, outer.vals, args.stream_chunk_rows,
+                     spill_dir=args.spill_dir, device=device)
+    return 0, "phj-stream", sres.join_tuples, {
+        "chunks": len(sres.chunks),
+        "resumed_chunks": sres.resumed_chunks,
+        "chunk_rows": args.stream_chunk_rows,
+        "window": sres.plan.window}
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     if args.algorithm == "write":
@@ -354,16 +400,20 @@ def main(argv=None):
                 on_trace_ready=tensorboard_trace_handler(args.profile)))
         inner, outer, generated = _load_or_generate(args)
         timer = PhaseTimer()
-        roofline = None
-        if args.algorithm == "npj":
+        extras = None
+        alg = args.algorithm
+        if alg == "phj" and (args.grace_bits > 0
+                             or args.stream_chunk_rows > 0):
+            rc, alg, join_tuples, extras = _out_of_core(
+                args, timer, inner, outer, device)
+        elif alg == "npj":
             rc, join_tuples = _npj(args, timer, inner, outer, device)
         else:
-            rc, join_tuples, roofline = _phj(args, timer, inner, outer,
-                                             device)
+            rc, join_tuples, extras = _phj(args, timer, inner, outer,
+                                           device)
     if rc:
         return rc
-    return _finish(args, args.algorithm, timer, generated, join_tuples,
-                   roofline)
+    return _finish(args, alg, timer, generated, join_tuples, extras)
 
 
 if __name__ == "__main__":

@@ -14,10 +14,6 @@ import dataclasses
 
 DEFAULT_FACTOR = 0x9E3779B1  # odd golden-ratio factor; any odd u32 works
 
-# smallest chunk count the JAX planner's tuner would time
-# (hash_join_codes_knl_tpu/engine/tune.py DEFAULT_CANDIDATES)
-_MIN_TUNED_CHUNKS = 48
-
 
 @dataclasses.dataclass(frozen=True)
 class JoinPlan:
@@ -62,28 +58,38 @@ class JoinPlan:
 
 
 def plan_join(inner_n: int, outer_n: int, tile: int | None = None,
-              probe_chunks: int | None = None) -> JoinPlan:
+              probe_chunks: int | None = None, device=None) -> JoinPlan:
     """Pick a plan with the JAX planner's geometry.
 
     At large probe counts (64M to 320M rows) the probe side is sorted as
     independent chunks with a 3072-row tile.  The chunk count is capped
     by window feasibility: a tile's chunk-local span, about
     tile * inner * C / outer, must fit the gather window ceiling with its
-    margins (about 12.5K slots).  Where the JAX planner then times a few
-    candidate chunk counts on the device (its engine/tune.py), this port
-    takes that tuner's own default, min(64, c_win), without timing:
-    whether the H100 needs a tuner at all is an open question in PERF.md.
-    Small probes keep the global sort.
+    margins (about 12.5K slots).  The candidates under that cap are then
+    timed on the card by the plan-time tuner (engine/tune.py, cached per
+    geometry and device name); on `device` "cpu", or without a card, the
+    tuner's default min(64, c_win) comes back untimed, as the JAX
+    planner's does off the TPU.  Small probes keep the global sort.
     """
     if probe_chunks is None:
+        # above ~320M probe rows the chunked sort's workspace tipped a
+        # 16 GB TPU into OOM (the JAX planner's rule, kept for parity):
+        # larger relations go to engine/stream.py
         if 64_000_000 <= outer_n <= 320_000_000:
+            from .tune import DEFAULT_CANDIDATES, tuned_probe_chunks
+
             t = tile if tile is not None else 3072
             c_win = int((12_500 * outer_n) // (t * max(inner_n, 1)))
-            if c_win >= _MIN_TUNED_CHUNKS:
-                probe_chunks = min(64, c_win)
+            if c_win >= min(DEFAULT_CANDIDATES):
+                # candidates the cap excludes are never timed; pass the
+                # actual tile: the tuner caches per tile
+                cands = tuple(C for C in DEFAULT_CANDIDATES if C <= c_win)
+                probe_chunks = tuned_probe_chunks(
+                    outer_n, tile=t, default=min(64, c_win),
+                    candidates=cands, device=device)
             else:
                 probe_chunks = c_win
-            probe_chunks = max(0, probe_chunks)
+            probe_chunks = int(max(0, min(probe_chunks, c_win)))
             if probe_chunks <= 1:
                 probe_chunks = 0
         else:

@@ -359,6 +359,38 @@ def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
     return JoinResult(_unscramble(ohk, plan.factor), ov, mv, mc, stats)
 
 
+def _staged_fns(plan: JoinPlan, tile: int, window: int, rows_total: int):
+    """The merge pipeline's stages at a pinned geometry, as three
+    functions: sort_side(keys, vals, pad_to, build=False) -> sorted
+    (biased keys, values), the build side by (key, value) and the probe
+    side by key in plan.probe_chunks chunks; windows(bhk, ohk) -> (wrow,
+    stats, wide), wide None but for a two-class plan; probe(bhk, bval,
+    ohk, ov, wrow, stats, wide) -> JoinResult.  phj_join_merge runs them
+    once; the streaming driver (engine/stream.py) sorts the build side
+    once and runs the probe stages per chunk, and takes new stages on
+    each re-plan."""
+
+    def sort_side(keys, vals, pad_to: int, build: bool = False):
+        if build:
+            return _merge_sort_side(keys, vals, pad_to, plan.factor)
+        return _merge_sort_probe(keys, vals, pad_to, plan.probe_chunks,
+                                 plan.factor)
+
+    def windows(bhk, ohk):
+        if not plan.window_wide:
+            return (*_merge_windows(bhk, ohk, tile, window, rows_total),
+                    None)
+        wcap = plan.wide_cap or max(8, ohk.shape[0] // tile // 16)
+        return _merge_windows(bhk, ohk, tile, window, rows_total,
+                              window_wide=plan.window_wide, wide_cap=wcap)
+
+    def probe(bhk, bval, ohk, ov, wrow, stats, wide):
+        return _merge_probe(bhk, bval, ohk, ov, wrow, stats, plan, tile,
+                            window, wide)
+
+    return sort_side, windows, probe
+
+
 def _untimed(name, fn, *args, **kw):
     return fn(*args, **kw)
 
@@ -382,21 +414,12 @@ def phj_join_merge(inner_keys, inner_vals, outer_keys, outer_vals,
             f"window_wide={plan.window_wide} is wider than the build side "
             f"({rows_total * 128} slots): use a single-class plan"
         )
-    bhk, bval = run("partition_build", _merge_sort_side, inner_keys,
-                    inner_vals, rows_total * 128, plan.factor)
-    ohk, ov = run("partition_probe", _merge_sort_probe, outer_keys,
-                  outer_vals, cap, plan.probe_chunks, plan.factor)
-    wide = None
-    if plan.window_wide:
-        wcap = plan.wide_cap or max(8, cap // tile // 16)
-        wrow, overflow, wide = run(
-            "windows", _merge_windows, bhk, ohk, tile, window, rows_total,
-            window_wide=plan.window_wide, wide_cap=wcap)
-    else:
-        wrow, overflow = run("windows", _merge_windows, bhk, ohk, tile,
-                             window, rows_total)
-    return run("probe", _merge_probe, bhk, bval, ohk, ov, wrow, overflow,
-               plan, tile, window, wide)
+    sort_side, windows, probe = _staged_fns(plan, tile, window, rows_total)
+    bhk, bval = run("partition_build", sort_side, inner_keys, inner_vals,
+                    rows_total * 128, True)
+    ohk, ov = run("partition_probe", sort_side, outer_keys, outer_vals, cap)
+    wrow, stats, wide = run("windows", windows, bhk, ohk)
+    return run("probe", probe, bhk, bval, ohk, ov, wrow, stats, wide)
 
 
 def phj_join_merge_staged(inner_keys, inner_vals, outer_keys, outer_vals,
@@ -563,6 +586,19 @@ def replan_from_span(plan: JoinPlan, span: int) -> JoinPlan:
     return dataclasses.replace(plan, window=want)
 
 
+def _run_device(device) -> torch.device:
+    """`device`, or by default the card (RuntimeError where there is
+    none: the entry points never carry on on the host unasked)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available for numpy inputs: pass "
+            "device='cpu' to run the plain versions on the host"
+        )
+    return torch.device("cuda")
+
+
 def _as_column(x, device) -> torch.Tensor:
     """A join input as a contiguous 1-D int32 bit tensor.  A tensor stays
     on its device unless `device` is given; a numpy column goes to
@@ -571,14 +607,7 @@ def _as_column(x, device) -> torch.Tensor:
         if x.dtype != torch.int32 or x.dim() != 1:
             raise ValueError("tensor columns must be 1-D int32 (uint32 bits)")
         return (x if device is None else x.to(device)).contiguous()
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available for numpy inputs: pass "
-                "device='cpu' to run the plain versions on the host"
-            )
-        device = torch.device("cuda")
-    return u32_to_device(np.asarray(x), device)
+    return u32_to_device(np.asarray(x), _run_device(device))
 
 
 def join(inner_keys, inner_vals, outer_keys, outer_vals,
@@ -600,7 +629,8 @@ def join(inner_keys, inner_vals, outer_keys, outer_vals,
     if len({c.device for c in cols}) != 1:
         raise ValueError("all four columns must be on one device")
     if plan is None:
-        plan = plan_join(cols[0].shape[0], cols[2].shape[0])
+        plan = plan_join(cols[0].shape[0], cols[2].shape[0],
+                         device=cols[0].device)
     res = phj_join(*cols, plan)
     if not plan.probe_impl.startswith("merge"):
         bc = res.build_counts

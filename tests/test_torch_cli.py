@@ -183,13 +183,63 @@ def test_phj_aggregate_mn_like_jax(tmp_path, capsys):
     ["cpra", "1", "2048", "1024"],
     ["cpra", "8", "8192", "1024", "--timelog"],
     ["npj", "2", "4096", "512"],
-    ["phj", "1", "4096", "1024", "--stream-chunk-rows", "1024"],
-    ["phj", "1", "4096", "1024", "--grace-bits", "2", "--spill-dir", "x"],
+    ["phj", "2", "4096", "1024", "--stream-chunk-rows", "1024",
+     "--grace-bits", "2", "--spill-dir", "x"],
+    ["phj", "4", "4096", "1024", "--grace-bits", "2", "--spill-dir", "x"],
 ], ids=["cpra", "cpra-timelog", "npj-threads", "stream", "grace"])
 def test_modes_not_ported_exit_2(capsys, argv):
     rc, out, err = _run(capsys, main, argv + CPU)
     assert rc == 2 and out is None
     assert "not ported yet" in err
+
+
+def _out_of_core_both(capsys, tmp_path, argv, runs=1):
+    """Each CLI with its own --spill-dir, `runs` times; returns the last
+    (port, JAX) reports."""
+    outs = []
+    for name, fn, extra in (("port", main, CPU), ("jax", jax_main, [])):
+        d = str(tmp_path / name)
+        for _ in range(runs):
+            rc, out, err = _run(capsys, fn, argv + ["--spill-dir", d,
+                                                    *extra])
+            assert rc == 0, err
+        outs.append(out)
+    assert set(outs[0]) == set(outs[1])
+    return outs
+
+
+def test_stream_like_jax(capsys, tmp_path):
+    argv = ["phj", "1", "8192", "1024", "--seed", "11", "--json",
+            "--stream-chunk-rows", "2048"]
+    keys = ("algorithm", "join_tuples", "chunks", "resumed_chunks",
+            "chunk_rows", "window")
+    first = _out_of_core_both(capsys, tmp_path / "a", argv)
+    assert first[0]["algorithm"] == "phj-stream"
+    assert first[0]["chunks"] == 4 and first[0]["resumed_chunks"] == 0
+    resumed = _out_of_core_both(capsys, tmp_path / "b", argv, runs=2)
+    assert resumed[0]["resumed_chunks"] == 4
+    for t, j in (first, resumed):
+        assert {k: t[k] for k in keys} == {k: j[k] for k in keys}
+        assert t["join_tuples"] == 8192 and "stream_join_s" in t
+
+
+def test_grace_like_jax(capsys, tmp_path):
+    argv = ["phj", "1", "8192", "2048", "--seed", "19", "--json",
+            "--grace-bits", "2", "--stream-chunk-rows", "4096"]
+    t, j = _out_of_core_both(capsys, tmp_path, argv)
+    keys = ("algorithm", "join_tuples", "partitions", "max_build_partition",
+            "max_probe_partition")
+    assert {k: t[k] for k in keys} == {k: j[k] for k in keys}
+    assert t["algorithm"] == "phj-grace" and t["partitions"] == 4
+    assert t["join_tuples"] == 8192 and "grace_join_s" in t
+
+
+def test_grace_without_spill_dir_exits_1(capsys):
+    (rc_t, out_t, err_t), (rc_j, _, err_j) = _both(
+        capsys, ["phj", "1", "4096", "1024", "--grace-bits", "2"])
+    assert rc_t == rc_j == 1 and out_t is None
+    assert "--grace-bits needs --spill-dir" in err_t
+    assert "--grace-bits needs --spill-dir" in err_j
 
 
 @pytest.mark.parametrize("argv", [

@@ -772,3 +772,158 @@ def test_staged_validate_and_cli_on_card(cuda, tmp_path, capsys):
         assert card_lines == cpu_lines
         if argv[0] == "phj":
             assert card["hbm_peak_source"] != "cpu (nominal DDR)"
+
+
+def _host_cols(res) -> dict:
+    return {f: v for f, v in result_to_numpy(res).items()
+            if f != "build_counts"}
+
+
+def test_stream_double_buffered_equals_one_chunk_at_a_time(cuda):
+    """stream_join on the card (pinned buffers, a copy stream, events)
+    equals the same stages run one chunk at a time from a synchronous
+    copy, and the CPU stream, slot for slot; every probe byte crosses to
+    the card once."""
+    from hash_join_codes_knl_tpu_torch.engine.stream import stream_join
+
+    inner, outer, _ = generate(seed=61, inner_tuples=200_000,
+                               outer_tuples=1_300_000, mode="uniform")
+    ik, iv, ok, ov = inner.keys, inner.vals, outer.keys, outer.vals
+    chunk = 300_000
+    live = []
+    res = stream_join(ik, iv, ok, ov, chunk, device=cuda,
+                      on_chunk=lambda cm, r: live.append(_host_cols(r)))
+    host = []
+    res_h = stream_join(ik, iv, ok, ov, chunk, device="cpu",
+                        on_chunk=lambda cm, r: host.append(_host_cols(r)))
+    assert res.plan == res_h.plan and len(live) == len(host) == 5
+    assert res.join_tuples == res_h.join_tuples == len(ok)
+    tile, window, rows, cap = phj._merge_params(res.plan, len(ik), chunk)
+    sort_side, windows, probe = phj._staged_fns(res.plan, tile, window, rows)
+    bhk, bval = sort_side(u32_to_device(ik, cuda), u32_to_device(iv, cuda),
+                          rows * 128, True)
+    for k, (got, want) in enumerate(zip(live, host)):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        ohk, ov_s = sort_side(u32_to_device(ok[sl], cuda),
+                              u32_to_device(ov[sl], cuda), cap)
+        one = _host_cols(probe(bhk, bval, ohk, ov_s, *windows(bhk, ohk)))
+        for f in want:
+            np.testing.assert_array_equal(got[f], one[f], err_msg=f)
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    t = res.transfer
+    assert t["h2d_bytes"] == 8 * len(ok)
+    assert 0 <= t["hidden_ms"] <= t["h2d_ms"] and t["compute_ms"] > 0
+
+
+def test_stream_resume_on_card(cuda, tmp_path):
+    from hash_join_codes_knl_tpu_torch.engine.stream import (
+        SpilledChunk,
+        replay_probe_columns,
+        stream_join,
+    )
+
+    inner, outer, _ = generate(seed=62, inner_tuples=50_000,
+                               outer_tuples=400_000, mode="uniform")
+    ik, iv, ok, ov = inner.keys, inner.vals, outer.keys, outer.vals
+    d = str(tmp_path / "spill")
+    live = []
+    first = stream_join(ik, iv, ok, ov, 100_000, spill_dir=d, device=cuda,
+                        on_chunk=lambda cm, r: live.append(_host_cols(r)))
+    blob = tmp_path / "spill" / "chunk_000002_mval.bin"
+    raw = bytearray(blob.read_bytes())
+    raw[40] ^= 0xFF
+    blob.write_bytes(bytes(raw))
+    seen = {}
+
+    def on_chunk(cm, payload):
+        if isinstance(payload, SpilledChunk):
+            sl = slice(cm.index * 100_000, (cm.index + 1) * 100_000)
+            pk, pv = replay_probe_columns(ok[sl], ov[sl], first.plan,
+                                          len(payload.match_vals), cuda)
+            seen[cm.index] = {"probe_keys": pk, "probe_vals": pv,
+                              "match_vals": payload.match_vals,
+                              "match_cnts": payload.match_cnts}
+        else:
+            seen[cm.index] = _host_cols(payload)
+
+    second = stream_join(ik, iv, ok, ov, 100_000, spill_dir=d, device=cuda,
+                         on_chunk=on_chunk)
+    assert [c.resumed for c in second.chunks] == [True, True, False, True]
+    assert second.join_tuples == first.join_tuples == len(ok)
+    for k, want in enumerate(live):
+        for f in want:
+            np.testing.assert_array_equal(seen[k][f], want[f], err_msg=f)
+
+
+def test_grace_phase1_kernel_files_equal_plain(cuda, tmp_path):
+    """The radix-pass kernel's partition files (compacted on the card)
+    hold the plain pass's rows as multisets, with equal counts and
+    checksums; grace_join on the card equals the CPU run partition for
+    partition, a hot-key chunk taking the host path in both."""
+    import json
+    import os
+
+    from hash_join_codes_knl_tpu_torch.engine import grace
+
+    rng = np.random.default_rng(63)
+    keys = rng.integers(1, 2**32, 700_000, dtype=np.uint32)
+    vals = rng.integers(0, 2**32, 700_000, dtype=np.uint32)
+    keys[:2000] = 0  # null keys are dropped
+    keys[300_000:500_000] = keys[5000]  # chunk 1: a hot key
+    files = {}
+    for dev in (cuda, "cpu"):
+        d = str(tmp_path / str(dev))
+        os.makedirs(d)
+        *state, host = grace._partition_side(keys, vals, DEFAULT_FACTOR, 5,
+                                             250_000, d, "probe",
+                                             device=dev)
+        assert host == 1
+        meta = json.load(open(os.path.join(d, "probe_partition.json")))
+        files[str(dev)] = meta, [
+            np.sort(np.fromfile(os.path.join(d, f"probe_{p}_hk.bin"),
+                                "<u4").astype(np.uint64) << 32
+                    | np.fromfile(os.path.join(d, f"probe_{p}_val.bin"),
+                                  "<u4")) for p in range(32)]
+    (m_c, f_c), (m_h, f_h) = files[str(cuda)], files["cpu"]
+    assert m_c == m_h and sum(m_c["counts"]) == 698_000
+    for a, b in zip(f_c, f_h):
+        np.testing.assert_array_equal(a, b)
+    ik = np.unique(rng.integers(1, 2**32, 60_000, dtype=np.uint32))[:50_000]
+    iv = rng.integers(0, 2**32, len(ik), dtype=np.uint32)
+    ok = ik[rng.integers(0, len(ik), 600_000)]
+    ov = rng.integers(0, 2**32, len(ok), dtype=np.uint32)
+    before = rp.radix_partition.launches
+    g_c = grace.grace_join(ik, iv, ok, ov, f_bits=4, chunk_rows=200_000,
+                           spill_dir=str(tmp_path / "gc"), device=cuda)
+    assert rp.radix_partition.launches - before == 1 + 3
+    g_h = grace.grace_join(ik, iv, ok, ov, f_bits=4, chunk_rows=200_000,
+                           spill_dir=str(tmp_path / "gh"), device="cpu")
+    assert g_c.join_tuples == g_h.join_tuples == len(ok)
+    assert [m.join_tuples for m in g_c.partitions] == \
+        [m.join_tuples for m in g_h.partitions]
+
+
+def test_tuner_pick_cached_per_device_name(cuda, tmp_path, monkeypatch):
+    import json
+
+    from hash_join_codes_knl_tpu_torch.engine import tune
+
+    path = str(tmp_path / "tune.json")
+    got = tune.tuned_probe_chunks(2_000_000, tile=1024, default=99,
+                                  candidates=(8, 16), cache_path=path)
+    assert got in (8, 16)
+    name = torch.cuda.get_device_name(cuda)
+    key = f"2000000|1024|8,16|{torch.__version__}|{name}"
+    entry = json.load(open(path))[key]
+    assert entry["C"] == got and set(entry["times"]) == {"8", "16"}
+
+    def untimed(*a):
+        raise AssertionError("a cached verdict was timed again")
+
+    monkeypatch.setattr(tune, "_time_sort", untimed)
+    assert tune.tuned_probe_chunks(2_000_000, tile=1024, candidates=(8, 16),
+                                   cache_path=path) == got
+    monkeypatch.setattr(tune, "_device_name", lambda d: "another card")
+    with pytest.raises(AssertionError, match="timed again"):
+        tune.tuned_probe_chunks(2_000_000, tile=1024, candidates=(8, 16),
+                                cache_path=path)

@@ -224,6 +224,39 @@ def test_numpy_inputs_default_to_the_card(entry):
         getattr(hjt, entry)(k, k, k, k)
 
 
+@pytest.mark.parametrize("entry", [
+    "stream_join", "grace_join", "join_columns", "replay_probe_columns",
+    "resume_partitions"])
+def test_out_of_core_entries_default_to_the_card(tmp_path, entry):
+    """The out-of-core and column entry points, the chunk replay and the
+    spill loader run on the card unless told otherwise; without one they
+    raise, and never run on the host."""
+    import hash_join_codes_knl_tpu_torch as hjt
+    from hash_join_codes_knl_tpu_torch.engine import spill, stream
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    k = np.arange(1, 513, dtype=np.uint32)
+    d = str(tmp_path)
+    spill.spill_partitions(d, "s", torch.arange(1, 513, dtype=torch.int32),
+                           torch.arange(512, dtype=torch.int32),
+                           torch.tensor([512], dtype=torch.int32))
+    calls = {
+        "stream_join": lambda: hjt.stream_join(k, k, k, k, 256),
+        "grace_join": lambda: hjt.grace_join(k, k, k, k, f_bits=2,
+                                             spill_dir=d),
+        "join_columns": lambda: hjt.join_columns(k, {"a": k}, k, {"b": k}),
+        "replay_probe_columns": lambda: stream.replay_probe_columns(
+            k, k, plan_join(512, 512), 1024),
+        "resume_partitions": lambda: spill.resume_partitions(d, "s"),
+    }
+    # the same call with device="cpu" runs, so the raise is the default's
+    spill.resume_partitions(d, "s", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
 def test_build_library_named_by_source_hash():
     from hash_join_codes_knl_tpu_torch.ops import _build
 
