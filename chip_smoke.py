@@ -23,7 +23,15 @@ exact, with its copy and compute overlap), its resume after a corrupted
 chunk (4M x 64M, digests against the oracle), grace_join at 256M x 1000M
 (64 partitions, exact) and its rerun from the partition files and the
 journal, both out-of-core CLI modes, and the multi-column joins (1M x 8M
-M:N, four modes, u64 and two-column keys) against a numpy oracle.
+M:N, four modes, u64 and two-column keys) against a numpy oracle.  Then
+the distributed path (parallel/): a world of one NCCL rank at 16M x 256M
+(cpra_join, its skew step on the Zipf twin, the CLI's staged cpra, and
+npj_join_dist at 4M x 16M), then four gloo thread ranks sharing the card
+(cpra_join at 16M x 256M; at 4M x 64M the radix pack, tier routing,
+skew, the pipelined and two-level steps and a padded radix local plan;
+npj_join_dist; grace_join_dist at 16M x 64M and its resume), each
+against join_oracle's digest, and the kernels it launched held against
+their plain versions on rank 0's inputs there.
 
     python3 chip_smoke.py
 
@@ -801,7 +809,7 @@ def _mn_expansion(res, ik, iv, ok, ov) -> None:
            f"sum checksum {got_agg[1]}, equal to the numpy group-by")
 
 
-def phase_headline(dev, cols, gen_s) -> None:
+def phase_headline(dev, cols, gen_s) -> float:
     from hash_join_codes_knl_tpu_torch.engine.phj import join
     from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
 
@@ -822,6 +830,7 @@ def phase_headline(dev, cols, gen_s) -> None:
     _print(f"phase headline: join median of 3 {med:.6f} s = "
            f"{HEADLINE[1] / med:.1f} probe-tuples/s (runs {runs}); peak "
            f"device memory {peak:.2f} GiB")
+    return med
 
 
 def _stage_breakdown(cols, plan) -> dict:
@@ -880,7 +889,7 @@ def phase_zipf_headline(dev):
            f"join_tuples {got} equal the searchsorted count; {attempts - 1} "
            f"re-plans from {plan_join(*HEADLINE)} to final plan {plan}; "
            f"join incl. re-plans {dt:.6f} s")
-    return cols, plan, want
+    return data, cols, plan, want
 
 
 def _two_class_plan(cols, plan):
@@ -2007,6 +2016,458 @@ def phase_outofcore(dev, want_4m) -> None:
     _stamp("the multi-column joins")
 
 
+
+DIST_GRACE = (16_000_000, 64_000_000, 4)  # build, probe, f_bits
+DIST_RANKS = 4  # thread ranks sharing the card
+
+
+def _digest_chunked(data, pool, parts: int = 16):
+    """join_oracle's digest of a relation pair, computed over `parts`
+    slices of the probe side on the host pool: the digest is a sum over
+    rows, so the slices' digests add up to the whole's, and each slice
+    goes to join_oracle sorted by key (the same rows; its searches then
+    walk the build keys in order).  Returns a function that waits for
+    it."""
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+
+    inner, outer = data
+
+    def piece(a, b):
+        ok, ov = outer.keys[a:b], outer.vals[a:b]
+        o = np.argsort(ok, kind="stable")
+        return multiset_digest(*join_oracle(inner.keys, inner.vals, ok[o],
+                                            ov[o]))
+
+    cuts = np.linspace(0, len(outer.keys), parts + 1).astype(np.int64)
+    futs = [pool.submit(piece, a, b)
+            for a, b in zip(cuts[:-1].tolist(), cuts[1:].tolist())]
+    return lambda: _sum_digests([f.result() for f in futs])
+
+
+def _sum_digests(ds):
+    return (sum(d[0] for d in ds), sum(d[1] for d in ds) % 2**64,
+            sum(d[2] for d in ds) % 2**64)
+
+
+def _rows_digest(pool, results, heavy=()):
+    """multiset_digest of the matched rows of every rank's JoinResult and
+    of the heavy row sets (probe keys, values, match values, counts),
+    the rows selected on the card and digested in slices on the host
+    pool."""
+    from hash_join_codes_knl_tpu_torch.engine.oracle import multiset_digest
+    from hash_join_codes_knl_tpu_torch.utils.hashing import to_numpy_u32
+
+    sets = [(r.probe_keys, r.probe_vals, r.match_vals, r.match_cnts)
+            for r in results] + list(heavy)
+    futs = []
+    for k, v, t, c in sets:
+        if c.numel() and int(c.max()) > 1:
+            raise AssertionError("multi-match rows in a unique-build join")
+        m = c == 1
+        cols = [to_numpy_u32(x[m]) for x in (k, v, t)]
+        for part in np.array_split(np.arange(len(cols[0])), 4):
+            if len(part):
+                a, b = int(part[0]), int(part[-1]) + 1
+                futs.append(pool.submit(multiset_digest,
+                                        *(x[a:b] for x in cols)))
+    return _sum_digests([f.result() for f in futs])
+
+
+def _timed(dev, fn):
+    """(fn(), host seconds fenced by synchronizes, peak device GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def _dist_one_rank(dev, pool, data_h, zipf_h, head_med):
+    """A world of one NCCL rank (a FileStore in a temp dir) at the cpra
+    bench row's shape: cpra_join (the shortcut to join()), timed before
+    the oracle's digests start on the host pool; its full skew step on
+    the Zipf twin; the CLI's staged cpra; npj_join_dist against
+    npj_join.  Returns the wait for the uniform relations' digest."""
+    import torch.distributed as dist
+
+    from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
+    from hash_join_codes_knl_tpu_torch.parallel.cpra import cpra_join
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        data_mesh,
+        initialize,
+    )
+    from hash_join_codes_knl_tpu_torch.parallel.npj_dist import (
+        npj_join_dist,
+    )
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
+    from hash_join_codes_knl_tpu_torch.utils.hashing import to_numpy_u32
+
+    cols = [c for rel in data_h for c in (rel.keys, rel.vals)]
+    store = tempfile.mkdtemp()
+    initialize(f"file://{store}/store", world_size=1, rank=0,
+               backend="nccl")
+    try:
+        mesh = data_mesh(device=dev)
+        if mesh.size != 1 or dist.get_backend() != "nccl":
+            raise AssertionError(f"not a world of one NCCL rank: {mesh}")
+        (res, plan), dt0, peak = _timed(dev, lambda: cpra_join(*cols, mesh))
+        got, want = int(res.join_tuples), expected_join_tuples(*HEADLINE)
+        if got != want:
+            raise AssertionError(f"cpra_join one rank: {got} != {want}")
+        del res
+        med, runs = _median_s(lambda: cpra_join(*cols, mesh, plan))
+        _print(f"phase distributed: one NCCL rank, cpra_join 16M x 256M "
+               f"(host columns, the shortcut to join()): join_tuples {got} "
+               f"exact; first {dt0:.3f} s; median of 3 {med:.6f} s (runs "
+               f"{runs}, upload of the host columns included) beside the "
+               f"merge headline's {head_med:.6f} s on device columns; peak "
+               f"{peak:.2f} GiB")
+        # the oracle's digests run on the host from here on
+        want_z = _digest_chunked(zipf_h, pool)
+        want_h = _digest_chunked(data_h, pool)
+        zcols = [c for rel in zipf_h for c in (rel.keys, rel.vals)]
+        (res, heavy, _), dt, peak = _timed(dev, lambda: cpra_join(
+            *zcols, mesh, skew=True))
+        n_heavy = int((heavy[3] > 0).sum())
+        got_z = _rows_digest(pool, [res], [heavy])
+        del res, heavy
+        _print(f"phase distributed: one NCCL rank, cpra_join(skew=True) "
+               f"16M x 256M Zipf z=1.0: {got_z[0]} rows, {n_heavy} joined "
+               f"through the replicated heavy table; {dt:.3f} s; peak "
+               f"{peak:.2f} GiB")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _, out, _ = _cli(["cpra", "1", str(HEADLINE[1]), str(HEADLINE[0]),
+                          "--json", "--timelog"])
+        wall = time.perf_counter() - t0
+        if out["join_tuples"] != expected_join_tuples(*HEADLINE):
+            raise AssertionError(f"cli cpra 1: {out}")
+        _print(f"phase distributed: cli cpra 1 {HEADLINE[1]} {HEADLINE[0]} "
+               f"--json --timelog: join_tuples {out['join_tuples']} exact; "
+               f"exchange {out['exchange_s']} s, local_join "
+               f"{out['local_join_s']} s ({wall:.3f} s with generation)")
+        torch.cuda.empty_cache()
+        data_n, _ = _generate(*NPJ_4M, seed=42, mode="uniform")
+        ncols = [c for rel in data_n for c in (rel.keys, rel.vals)]
+        (mv, mc, total, _), dt, peak = _timed(dev, lambda: npj_join_dist(
+            *ncols, mesh))
+        wv, wc, _ = npj_join(*ncols, device=dev)
+        if not (np.array_equal(mv, to_numpy_u32(wv))
+                and np.array_equal(mc, wc.cpu().numpy())
+                and total == expected_join_tuples(*NPJ_4M)):
+            raise AssertionError("npj_join_dist one rank differs from "
+                                 "npj_join")
+        _print(f"phase distributed: one NCCL rank, npj_join_dist 4M x 16M: "
+               f"match columns equal npj_join's, join_tuples {total}; "
+               f"{dt:.3f} s; peak {peak:.2f} GiB")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    if got_z != want_z():
+        raise AssertionError(f"cpra_join skew one rank: {got_z} != "
+                             f"{want_z()}")
+    _print(f"phase distributed: one NCCL rank, the skew run's light + heavy "
+           f"rows digest equals join_oracle's ({got_z[0]} rows)")
+    return want_h
+
+
+def _on_ranks(meshes, fn):
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import run_ranks
+
+    return run_ranks(meshes, fn, timeout_s=900)
+
+
+def _dist_threads(dev, pool, meshes, data_h, want_h, uni_4m, want_4m,
+                  zipf_4m, want_z4m) -> dict:
+    """Four gloo thread ranks on the card: cpra_join at 16M x 256M in
+    total, the 4M x 64M variants (radix pack, tier routing, skew,
+    pipelined, two-level, a padded radix local plan), npj_join_dist,
+    grace_join_dist and its resume.  Returns the inputs the kernel
+    checks need."""
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.engine.npj import npj_join
+    from hash_join_codes_knl_tpu_torch.parallel import cpra
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        shard_null_padded,
+    )
+    from hash_join_codes_knl_tpu_torch.parallel.grace_dist import (
+        grace_join_dist,
+    )
+    from hash_join_codes_knl_tpu_torch.parallel.npj_dist import (
+        npj_join_dist,
+    )
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
+    from hash_join_codes_knl_tpu_torch.utils.hashing import to_numpy_u32
+
+    W = len(meshes)
+    head = [c for rel in data_h for c in (rel.keys, rel.vals)]
+    out, dt, peak = _timed(dev, lambda: _on_ranks(
+        meshes, lambda m: cpra.cpra_join(*head, m)[0]))
+    got = _rows_digest(pool, out)
+    if got != want_h() or got[0] != expected_join_tuples(*HEADLINE):
+        raise AssertionError(f"cpra_join {W} ranks 16M x 256M: {got} != "
+                             f"{want_h()}")
+    _print(f"phase distributed: {W} thread ranks (gloo), "
+           f"cpra_join 16M x 256M sort pack: the ranks' rows digest equal "
+           f"join_oracle's ({got[0]} rows, exact); {dt:.3f} s; peak "
+           f"{peak:.2f} GiB; rows per rank "
+           f"{[int(r.join_tuples) for r in out]}")
+    del out
+    torch.cuda.empty_cache()
+    u4 = [c for rel in uni_4m for c in (rel.keys, rel.vals)]
+    z4 = [c for rel in zipf_4m for c in (rel.keys, rel.vals)]
+    ni, no = HEADLINE_4M
+    padded = dataclasses.replace(_radix_4096_plan(), tile=2048)
+    # level caps: twice the expected rows per (source, destination)
+    cap2 = (2 * ni // W, 2 * no // W)
+
+    def staged(m):
+        plan = m.root_call(plan_join, ni // W, no // W, device=m.device)
+        ex, jo = cpra.make_cpra_steps_staged(m, plan, 2 * ni // W**2,
+                                             2 * no // W**2)
+        args = [shard_null_padded(c, m) for c in u4]
+        t0 = time.perf_counter()
+        *xch, eovf = ex(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res, jovf = jo(*xch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return res, (eovf or jovf), t1 - t0, t2 - t1
+
+    runs = {
+        "radix pack": lambda m: cpra.cpra_join(*u4, m, pack_impl="radix")[0],
+        "tier_ratio 0.75": lambda m: cpra.cpra_join(*u4, m,
+                                                    tier_ratio=0.75)[0],
+        "pipelined, 4 chunks": lambda m: _pipelined(m, u4, W),
+        "2-level 2 x 2": lambda m: _two_level(m, u4, W, cap2),
+        "padded radix 4096-way local plan": lambda m: cpra.cpra_join(
+            *u4, m, padded)[0],
+    }
+    for label, fn in runs.items():
+        res, dt, peak = _timed(dev, lambda: _on_ranks(meshes, fn))
+        got = _rows_digest(pool, res)
+        if got != want_4m:
+            raise AssertionError(f"{label} {W} ranks 4M x 64M: {got} != "
+                                 f"{want_4m}")
+        _print(f"phase distributed: {W} thread ranks, cpra {label} 4M x "
+               f"64M: digest equals join_oracle's ({got[0]} rows); "
+               f"{dt:.3f} s; peak {peak:.2f} GiB")
+        del res
+    out, dt, peak = _timed(dev, lambda: _on_ranks(
+        meshes, lambda m: cpra.cpra_join(*z4, m, skew=True)))
+    got = _rows_digest(pool, [o[0] for o in out], [o[1] for o in out])
+    if got != want_z4m:
+        raise AssertionError(f"skew {W} ranks 4M x 64M: {got} != {want_z4m}")
+    _print(f"phase distributed: {W} thread ranks, cpra skew 4M x 64M Zipf "
+           f"z=1.0: light + heavy digest equals join_oracle's ({got[0]} "
+           f"rows, {sum(int((o[1][3] > 0).sum()) for o in out)} heavy); "
+           f"{dt:.3f} s; peak {peak:.2f} GiB")
+    del out
+    out = _on_ranks(meshes, staged)
+    if any(o[1] for o in out) or _rows_digest(pool, [o[0] for o in out]) \
+            != want_4m:
+        raise AssertionError("staged cpra 4M x 64M overflowed or differs")
+    _print(f"phase distributed: {W} thread ranks, staged cpra 4M x 64M: "
+           f"digest equals the oracle's; per rank exchange s (gloo: "
+           f"copies through host memory and loopback TCP, not an "
+           f"interconnect) "
+           f"{[round(o[2], 4) for o in out]}, local_join s "
+           f"{[round(o[3], 4) for o in out]}")
+    del out
+    torch.cuda.empty_cache()
+    data_n, _ = _generate(*NPJ_4M, seed=42, mode="uniform")
+    ncols = [c for rel in data_n for c in (rel.keys, rel.vals)]
+    out, dt, peak = _timed(dev, lambda: _on_ranks(
+        meshes, lambda m: npj_join_dist(*ncols, m)))
+    wv, wc, _ = npj_join(*ncols, device=dev)
+    wv, wc = to_numpy_u32(wv), wc.cpu().numpy()
+    if not all(np.array_equal(o[0], wv) and np.array_equal(o[1], wc)
+               for o in out):
+        raise AssertionError("npj_join_dist 4 ranks differs from npj_join")
+    _print(f"phase distributed: {W} thread ranks, npj_join_dist 4M x 16M: "
+           f"match columns equal npj_join's on every rank, join_tuples "
+           f"{out[0][2]}; {dt:.3f} s; peak {peak:.2f} GiB")
+    del out
+    torch.cuda.empty_cache()
+    gi, gp, f_bits = DIST_GRACE
+    ik, iv, ok, ov = _grace_data(dev, gi, gp)
+    with tempfile.TemporaryDirectory() as tmp:
+        grace = lambda m: grace_join_dist(ik, iv, ok, ov, m, f_bits=f_bits,
+                                          spill_dir=tmp)
+        first, dt, peak = _timed(dev, lambda: _on_ranks(meshes, grace))
+        again, dt2, _ = _timed(dev, lambda: _on_ranks(meshes, grace))
+    live = sum(1 for p in first[0].partitions
+               if p.build_rows and p.probe_rows)
+    if not all(r.join_tuples == gp for r in first + again) or not all(
+            r.reused_sides == {"build": True, "probe": True}
+            and r.resumed_partitions == live for r in again):
+        raise AssertionError(f"grace_join_dist: {first[0]} / {again[0]}")
+    _print(f"phase distributed: {W} thread ranks, grace_join_dist 16M x 64M "
+           f"f_bits {f_bits}: join_tuples {gp} exact; {dt:.3f} s (partition "
+           f"{first[0].seconds['partition']:.3f} s, join "
+           f"{first[0].seconds['join']:.3f} s on rank 0); peak {peak:.2f} "
+           f"GiB; rerun {dt2:.3f} s, both sides reused and {live} "
+           f"partitions resumed on every rank")
+    return {"u4": u4, "ncols": ncols}
+
+
+def _pipelined(m, cols, W):
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.parallel import cpra
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        shard_null_padded,
+    )
+
+    ni, no = len(cols[0]), len(cols[2])
+    plan = m.root_call(plan_join, ni // W, no // W, device=m.device)
+    step = cpra.make_cpra_step_pipelined(
+        m, plan, max(64, 4 * ni // W**2),
+        max(plan.tile * 4, 4 * no // W**2), 4)
+    res, ovf = step(*[shard_null_padded(c, m) for c in cols])
+    if ovf:
+        raise AssertionError("pipelined cpra overflowed")
+    return res
+
+
+def _two_level(m, cols, W, caps):
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.parallel import cpra
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        shard_null_padded,
+        split_2level,
+    )
+
+    ni, no = len(cols[0]), len(cols[2])
+    plan = m.root_call(plan_join, ni // W, no // W, device=m.device)
+    h, c = split_2level(m, 2)
+    res, ovf = cpra.make_cpra_step_2level(h, c, plan, *caps)(
+        *[shard_null_padded(x, m) for x in cols])
+    if ovf:
+        raise AssertionError("2-level cpra overflowed")
+    return res
+
+
+def _dist_kernel_checks(meshes, inputs) -> dict:
+    """Each kernel the distributed path launched, held against its plain
+    version on rank 0's inputs there: the radix pack's pass on rank 0's
+    probe block; K1, K3 and K2 on rank 0's exchanged columns at the
+    local plan (256 spread tiles for the probes); the tile probe on the
+    padded radix local plan's layout of those columns; K2 on NPJ's table
+    against rank 0's probe block.  Runs after the path's counts are
+    read.  Returns the largest difference per kernel."""
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.engine import phj
+    from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+    from hash_join_codes_knl_tpu_torch.parallel import cpra
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        shard_null_padded,
+    )
+    from hash_join_codes_knl_tpu_torch.utils.hashing import bias, hashed_key
+
+    W = len(meshes)
+    u4 = inputs["u4"]
+    ni, no = HEADLINE_4M
+
+    def exchanged(m):
+        plan = m.root_call(plan_join, ni // W, no // W, device=m.device)
+        ex, _ = cpra.make_cpra_steps_staged(m, plan, 2 * ni // W**2,
+                                            2 * no // W**2)
+        return plan, ex(*[shard_null_padded(c, m) for c in u4])[:4]
+
+    plan, xch = _on_ranks(meshes, exchanged)[0]
+    errs = {}
+    # the radix pack's pass on rank 0's probe block (2 owner bits)
+    ok0, ov0 = (shard_null_padded(c, meshes[0]) for c in u4[2:])
+    args = (bias(hashed_key(ok0, plan.factor)), ov0, 2, 0,
+            2 * no // W**2)
+    got, want = rp.radix_partition(*args), rp.radix_partition_torch(*args)
+    _check_equal("radix_partition, the radix pack of rank 0", got, want)
+    errs["radix_partition"] = _max_abs_err(got, want)
+    local = dataclasses.replace(plan, skip_bits=plan.skip_bits + 2)
+    tile, window, rows, cap = phj._merge_params(local, xch[0].shape[0],
+                                                xch[2].shape[0])
+    k1 = (xch[2], xch[3], cap, max(1, local.probe_chunks), local.factor)
+    got, want = cl.flat_to_rows(*k1), cl.flat_to_rows_torch(*k1)
+    _check_equal("flat_to_rows, rank 0's exchanged probe side", got, want)
+    errs["flat_to_rows"] = _max_abs_err(got, want)
+    bhk, bval, ohk, _, wrow, tile, window = _stages(xch, local)
+    n_tiles = ohk.shape[0] // tile
+    sel = torch.linspace(0, n_tiles - 1, 256, device=ohk.device).long()
+    sub = (ohk.view(n_tiles, tile)[sel].reshape(-1).contiguous(), bhk, bval,
+           wrow[sel].contiguous(), tile, window)
+    want = mp.merge_probe_torch(*sub)
+    for name, fn in (("merge_probe_gather", mg.merge_probe_gather),
+                     ("merge_probe", mp.merge_probe)):
+        got = fn(*sub)
+        _check_equal(f"{name}, rank 0's local join (256 tiles)", got, want)
+        errs[name] = _max_abs_err(got, want)
+    padded = dataclasses.replace(_radix_4096_plan(), tile=2048,
+                                 skip_bits=2)
+    lay = _padded_stages(*xch, padded)
+    pk_s, tp_s, _ = _spread_tiles(lay["pk"], lay["tpid"], 128, 256)
+    sub = (pk_s, lay["tk"], lay["tv"], tp_s, 128)
+    got, want = pt.probe_tiles(*sub), pt.probe_tiles_torch(*sub)
+    _check_equal("probe_tiles, rank 0's padded radix local plan", got, want)
+    errs["probe_tiles"] = _max_abs_err(got, want)
+    # K2 on NPJ's replicated table against rank 0's probe block
+    from hash_join_codes_knl_tpu_torch.engine.npj import plan_npj
+    from hash_join_codes_knl_tpu_torch.utils.hashing import u32_to_device
+
+    ncols = inputs["ncols"]
+    dev = meshes[0].device
+    nplan = plan_npj(len(ncols[0]))
+    nplan = dataclasses.replace(nplan, window=nplan.auto_window(
+        len(ncols[2]) // W))
+    ohk, tk, tv, wrow, tile, window = npj_probe_inputs(
+        (u32_to_device(ncols[0], dev), u32_to_device(ncols[1], dev),
+         shard_null_padded(ncols[2], meshes[0]), None), nplan)
+    n_tiles = ohk.shape[0] // tile
+    sel = torch.linspace(0, n_tiles - 1, 256, device=dev).long()
+    sub = (ohk.view(n_tiles, tile)[sel].reshape(-1).contiguous(), tk, tv,
+           wrow[sel].contiguous(), tile, window)
+    got, want = mp.merge_probe(*sub), mp.merge_probe_torch(*sub)
+    _check_equal("merge_probe, NPJ's table vs rank 0's block", got, want)
+    errs["merge_probe"] = max(errs["merge_probe"], _max_abs_err(got, want))
+    _print(f"phase distributed: kernels equal to their plain versions at "
+           f"the distributed path's shapes (local plan {local}; padded "
+           f"{padded}): max abs err {errs}")
+    return errs
+
+
+def phase_distributed(dev, head_med, data_h, zipf_h, want_4m, want_z4m,
+                      uni_4m, zipf_4m) -> dict:
+    """The distributed slice's path on the headline's host relations and
+    its Zipf twin: a world of one NCCL rank, then four gloo thread ranks
+    sharing the card.  Returns the inputs the kernel checks need."""
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        thread_meshes,
+    )
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+    try:
+        want_h = _dist_one_rank(dev, pool, data_h, zipf_h, head_med)
+        _stamp("the distributed phase's NCCL rank")
+        torch.cuda.empty_cache()
+        meshes = thread_meshes(DIST_RANKS, dev, timeout_s=900)
+        inputs = _dist_threads(dev, pool, meshes, data_h, want_h, uni_4m,
+                               want_4m, zipf_4m, want_z4m)
+        inputs["meshes"] = meshes
+    finally:
+        pool.shutdown(wait=True)
+    _stamp("the distributed phase's thread ranks")
+    return inputs
+
+
 KERNELS = [
     ("flat_to_rows", "hash_join_codes_knl_tpu_torch/csrc/chunk_layout.cu",
      "hash_join_codes_knl_tpu/ops/chunk_layout.py:61"),
@@ -2031,6 +2492,8 @@ PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition"]
 NPJ_KERNELS = ["merge_probe"]
 CLI_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
 OUTOFCORE_KERNELS = ["flat_to_rows", "merge_probe_gather", "radix_partition"]
+DIST_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
+                "probe_tiles", "radix_partition"]
 
 
 def main() -> None:
@@ -2070,9 +2533,9 @@ def _main_paths(dev) -> None:
     """Every path's runs, the launch counts and the kernels line."""
     from hash_join_codes_knl_tpu_torch.engine.config import plan_join
 
+    # the host relations stay for the distributed phase
     data_h, gen_s = _generate(*HEADLINE, seed=42, mode="uniform")
     cols_h = _device_cols(data_h, dev)
-    del data_h
     data_1m, _ = _generate(*SMALL, seed=41, mode="uniform")
     _stamp("the build and the generation of 16M x 256M and 1M x 8M")
     phase_tuner(cols_h)
@@ -2094,15 +2557,17 @@ def _main_paths(dev) -> None:
     # no timed phase runs beside the host threads: those before this
     # line are over, and the next one starts when the threads are done
     oracles = _start_oracles(data_1m)
-    # the out-of-core phase's resume check joins the same relation
+    # the out-of-core phase's resume check and the distributed phase join
+    # the same relations
     want_4m = oracles["uniform_4m"][1]
+    want_z4m = oracles["zipf_4m"][1]
     phase_joins(dev, oracles)
     concurrent.futures.wait([digest for _, digest in oracles.values()])
     _stamp("the merge path's digests")
-    phase_headline(dev, cols_h, gen_s)
+    head_med = phase_headline(dev, cols_h, gen_s)
     _stamp("the merge headline")
     torch.cuda.empty_cache()
-    cols_z, plan_z, want_z = phase_zipf_headline(dev)
+    zipf_h, cols_z, plan_z, want_z = phase_zipf_headline(dev)
     _stamp("the Zipf headline")
     two, n_wide = phase_two_class(dev, cols_z, plan_z, want_z)
     _stamp("the two-class join")
@@ -2179,11 +2644,28 @@ def _main_paths(dev) -> None:
     phase_outofcore(dev, want_4m)
     outofcore = _launches()
     _print(f"launches, out-of-core path: {outofcore}")
+    torch.cuda.empty_cache()
+
+    uni_4m, _ = _generate(*HEADLINE_4M, seed=42, mode="uniform")
+    zipf_4m, _ = _generate(*HEADLINE_4M, seed=43, mode="zipf", zipf=1.0)
+    _set_launches()
+    inputs = phase_distributed(dev, head_med, data_h, zipf_h,
+                               want_4m.result(), want_z4m.result(), uni_4m,
+                               zipf_4m)
+    distributed = _launches()
+    _print(f"launches, distributed path: {distributed}")
+    del uni_4m, zipf_4m, data_h, zipf_h
+    torch.cuda.empty_cache()
+    for name, err in _dist_kernel_checks(inputs.pop("meshes"),
+                                         inputs).items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    _stamp("the distributed kernel checks")
     for path, names, got in (("merge", MERGE_KERNELS, merge),
                              ("padded", PADDED_KERNELS, padded),
                              ("npj", NPJ_KERNELS, npj),
                              ("cli", CLI_KERNELS, cli),
-                             ("out-of-core", OUTOFCORE_KERNELS, outofcore)):
+                             ("out-of-core", OUTOFCORE_KERNELS, outofcore),
+                             ("distributed", DIST_KERNELS, distributed)):
         for name in names:
             if got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the "
@@ -2193,7 +2675,8 @@ def _main_paths(dev) -> None:
     # (PERF.md says why, kernel by kernel), so library_ms is null
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=(merge[name] + padded[name] + npj[name]
-                              + cli[name] + outofcore[name]),
+                              + cli[name] + outofcore[name]
+                              + distributed[name]),
                     library_ms=None, **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))

@@ -3,11 +3,13 @@ modes, the two-class window geometry, the plan-time chunk-count tuner),
 its no-partition hash join (NPJ), the out-of-core drivers (``stream_join``
 with a host-RAM probe side, ``grace_join`` with both sides in partition
 files, checkpoint and resume for both), multi-column joins
-(``join_columns*``), the M:N expansion, the hash aggregate and the
-single-device CLI (``python -m hash_join_codes_knl_tpu_torch.cli``) in
-PyTorch, with hand-written CUDA kernels for the NVIDIA H100.  Not ported
-yet: the distributed modes (the JAX package's ``parallel/``: CPRA, the
-multi-device NPJ and Grace), whose CLI forms exit 2.
+(``join_columns*``), the M:N expansion, the hash aggregate, the
+distributed modes over ``torch.distributed`` ranks (``cpra_join`` with
+heavy-hitter replication, tier routing, the pipelined and two-level
+exchanges; the replicated-table NPJ; ``grace_join_dist``; ``data_mesh``
+and the thread ranks of ``parallel/distributed.py``) and the CLI
+(``python -m hash_join_codes_knl_tpu_torch.cli``) in PyTorch, with
+hand-written CUDA kernels for the NVIDIA H100.
 
 A port of ``hash_join_codes_knl_tpu`` (JAX/Pallas on a TPU), which stays
 the reference it is tested against.  This package imports no JAX and
@@ -32,6 +34,10 @@ _EXPORTS = {
     "npj_join": (".engine.npj", "npj_join"),
     "stream_join": (".engine.stream", "stream_join"),
     "grace_join": (".engine.grace", "grace_join"),
+    "data_mesh": (".parallel.distributed", "data_mesh"),
+    "cpra_join": (".parallel.cpra", "cpra_join"),
+    "npj_join_dist": (".parallel.npj_dist", "npj_join_dist"),
+    "grace_join_dist": (".parallel.grace_dist", "grace_join_dist"),
     "generate": (".relgen.generate", "generate"),
     "join_columns": (".engine.columns", "join_columns"),
     "join_columns_u64": (".engine.columns", "join_columns_u64"),

@@ -4,21 +4,35 @@ JAX package's ``cli.py``.
     python -m hash_join_codes_knl_tpu_torch.cli write <threads> <outer> <inner> [selc] [zipf]
     python -m hash_join_codes_knl_tpu_torch.cli npj   <threads> <outer> <inner> [ratio]
     python -m hash_join_codes_knl_tpu_torch.cli phj   <threads> <outer> <inner> [ratio]
+    python -m hash_join_codes_knl_tpu_torch.cli cpra  <threads> <outer> <inner> [ratio]
 
 Positional argv mirrors the reference mains (npj.cpp:932-935,
-phj.cpp:1962-1965, write.cpp:1680-1686).  The joins run on one device:
-the card by default, the CPU with ``--device cpu`` (the kernels' plain
-versions).  Without a card and without ``--device cpu`` a join exits 1
-with a message; it never carries on on the CPU.  <ratio> (the DDR/MCDRAM
-placement knob) is accepted for compatibility: one card has one memory
-tier.  ``phj --stream-chunk-rows N [--spill-dir D]`` streams the probe
-side from host RAM (engine/stream.py, JSON keys ``chunks``,
-``resumed_chunks``, ``chunk_rows``, ``window``); ``phj --grace-bits B
---spill-dir D [--stream-chunk-rows N]`` partitions both sides out of core
+phj.cpp:1962-1965, write.cpp:1680-1686).  The joins run on the card by
+default, on the CPU with ``--device cpu`` (the kernels' plain versions).
+Without a card and without ``--device cpu`` a join exits 1 with a
+message; it never carries on on the CPU.
+
+<threads> is the number of ranks for cpra, for npj (> 1: the replicated
+shared table, parallel/npj_dist.py) and for phj --grace-bits (> 1: the
+distributed pass and partition-parallel joins, parallel/grace_dist.py):
+clamped to the ranks of the torch.distributed world and floored to a
+power of two.  Run several ranks with torchrun, one process per card
+(``torchrun --nproc-per-node 4 -m hash_join_codes_knl_tpu_torch.cli cpra
+4 ...``; NCCL on the card, gloo with ``--device cpu``); without torchrun
+the world is one rank.  Every rank loads the same relations; rank 0
+prints the report, and every rank exits with the same code.  cpra runs
+``cpra_join``; ``--timelog`` meters the exchange and the local join as
+two phases, and ``--chunks N`` (with more than one rank) pipelines the
+probe side's exchange in N chunks.  <ratio> (the DDR/MCDRAM placement
+knob) drives cpra's two-level tier hash over the mesh's halves when
+there are two ranks or more, and is accepted for compatibility
+otherwise: one card has one memory tier.  ``phj --stream-chunk-rows N
+[--spill-dir D]`` streams the probe side from host RAM
+(engine/stream.py, JSON keys ``chunks``, ``resumed_chunks``,
+``chunk_rows``, ``window``); ``phj --grace-bits B --spill-dir D
+[--stream-chunk-rows N]`` partitions both sides out of core
 (engine/grace.py, keys ``partitions``, ``max_build_partition``,
-``max_probe_partition``; without --spill-dir it exits 1).  Not ported
-yet, each refused with exit code 2: ``cpra``, and ``npj`` or
-``--grace-bits`` with <threads> > 1 (the distributed drivers).
+``max_probe_partition``; without --spill-dir it exits 1).
 
 write generates ik_/iv_/ok_/ov_<N>.txt on the host; the join drivers
 load those files (falling back to in-memory generation when absent), run
@@ -71,15 +85,17 @@ def _expected_tuples(args, generated: bool):
     return expected_join_tuples(args.inner, args.outer, selc)
 
 
-def _finish(args, alg, timer, generated, join_tuples, extras=None):
-    """Shared epilogue: cardinality gate (exact, in Python ints), report.
-    Returns the process exit code."""
+def _finish(args, alg, timer, generated, join_tuples, extras=None,
+            report=True):
+    """Shared epilogue: cardinality gate (exact, in Python ints), report
+    (rank 0's only).  Returns the process exit code."""
     expect = _expected_tuples(args, generated)
     if expect is not None and join_tuples != expect:
         print(f"CARDINALITY MISMATCH: got {join_tuples} want {expect}",
               file=sys.stderr)
         return 1
-    _report(alg, timer, args.outer, join_tuples, args.json, extras)
+    if report:
+        _report(alg, timer, args.outer, join_tuples, args.json, extras)
     return 0
 
 
@@ -127,7 +143,9 @@ def _parser():
                    help="write a torch.profiler trace of the run to DIR "
                         "(chrome trace JSON)")
     p.add_argument("--chunks", type=int, default=0,
-                   help="cpra only (not ported yet)")
+                   help="cpra: split the probe side into N chunks and "
+                        "pipeline their exchange with the probe "
+                        "(make_cpra_step_pipelined; more than one rank)")
     p.add_argument("--stream-chunk-rows", type=int, default=0,
                    help="phj out-of-core mode: keep the probe side in "
                         "host RAM and stream it through the card in "
@@ -178,16 +196,18 @@ def _refusal(args):
                 "columns instead)")
     if args.sorted_order and (args.algorithm != "npj" or args.threads > 1):
         return "--sorted-order applies to the single-chip npj driver only"
-    for refused, mode in (
-            (args.algorithm == "cpra", "cpra"),
-            (args.algorithm == "npj" and args.threads > 1,
-             "npj with <threads> > 1"),
-            (args.algorithm == "phj" and args.grace_bits > 0
-             and args.threads > 1, "--grace-bits with <threads> > 1")):
-        if refused:
-            return (f"{mode} is not ported yet to the PyTorch package; run "
-                    "it with hash_join_codes_knl_tpu.cli")
     return None
+
+
+def _mesh_devices(threads: int) -> int:
+    """argv <threads> -> the mesh's rank count: clamped to the ranks of
+    the world and floored to a power of two (the exchange's contract);
+    threads <= 0 degenerates to 1."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = max(1, min(threads, world))
+    return 1 << (n.bit_length() - 1)
 
 
 def _write(args) -> int:
@@ -331,21 +351,110 @@ def _phj(args, timer, inner, outer, device):
     return 0, join_tuples, roofline
 
 
-def _out_of_core(args, timer, inner, outer, device):
+def _cpra(args, timer, inner, outer, mesh):
+    """The CPRA driver on `mesh`: cpra_join, the staged exchange and
+    local join (--timelog), or the pipelined step (--chunks with more
+    than one rank).  Returns (exit code, join tuples over the ranks)."""
+    from .engine.config import plan_join
+    from .engine.phj import downgrade_plan_opts, replan_from_span
+    from .parallel.cpra import (
+        cpra_join,
+        make_cpra_step_pipelined,
+        make_cpra_steps_staged,
+    )
+    from .parallel.distributed import shard_null_padded
+    from .utils.timing import PhaseTimer
+
+    ni, no, n = len(inner.keys), len(outer.keys), mesh.size
+    if not (args.timelog or (args.chunks > 1 and n > 1)):
+        res, _ = timer.run("exchange+join", cpra_join, inner.keys,
+                           inner.vals, outer.keys, outer.vals, mesh,
+                           tier_ratio=args.arg4)
+        return 0, int(mesh.all_sum([int(res.join_tuples)])[0])
+    plan = mesh.root_call(plan_join, ni // n, no // n, device=mesh.device)
+    cols = [shard_null_padded(c, mesh) for c in
+            (inner.keys, inner.vals, outer.keys, outer.vals)]
+    if args.chunks > 1 and n > 1:
+        step = make_cpra_step_pipelined(
+            mesh, plan, inner_cap=max(64, 4 * ni // (n * n)),
+            outer_cap=max(plan.tile * args.chunks, 4 * no // (n * n)),
+            chunks=args.chunks)
+        res, ovf = timer.run("pipelined exchange+join", step, *cols)
+        if ovf:
+            print("OVERFLOW: raise caps/chunks", file=sys.stderr)
+            return 1, None
+        return 0, int(mesh.all_sum([int(res.join_tuples)])[0])
+    # staged phase metering: the exchange (the re-aggregation copy the
+    # reference times on its own, cpra2.cpp:1895-1905) and the local join
+    slack, tier_bias = 2.0, 1.0
+    if args.arg4 is not None and n >= 2:
+        tier_bias = 2.0 * max(args.arg4, 1.0 - args.arg4)
+    for _ in range(3):
+        ex, jo = make_cpra_steps_staged(
+            mesh, plan, max(64, int(ni / n**2 * slack * tier_bias)),
+            max(plan.tile, int(no / n**2 * slack * tier_bias)),
+            tier_ratio=args.arg4 if n >= 2 else None)
+        # a fresh timer per attempt: an overflowed attempt must not
+        # inflate the reported exchange / local_join split
+        att = PhaseTimer()
+        *exchanged, eovf = att.run("exchange", ex, *cols)
+        res, jovf = att.run("local_join", jo, *exchanged)
+        if not (eovf or jovf):
+            timer.phases.update(att.phases)
+            timer.timeline.extend(att.timeline)
+            return 0, int(mesh.all_sum([int(res.join_tuples)])[0])
+        if jovf and plan.probe_impl.startswith("merge"):
+            # a window too narrow for the received spans: more slack only
+            # adds pads, so re-plan from the measured span as cpra_join
+            # does (the JAX CLI doubles the slack here too)
+            win, sel = mesh.all_sum(res.build_counts[[0, 2]].tolist())
+            span = int(mesh.all_max([int(res.build_counts[1])])[0])
+            if sel:
+                plan = downgrade_plan_opts(plan)
+            if win:
+                plan = replan_from_span(plan, span)
+        if eovf or not plan.probe_impl.startswith("merge"):
+            slack *= 2.0
+        res = exchanged = None
+    print("OVERFLOW persists after re-planning", file=sys.stderr)
+    return 1, None
+
+
+def _npj_dist(timer, inner, outer, mesh):
+    """npj with <threads> > 1: the replicated shared table."""
+    from .engine.npj import plan_npj
+    from .parallel.npj_dist import npj_join_dist
+
+    _, _, join_tuples, _ = timer.run(
+        "build+probe", npj_join_dist, inner.keys, inner.vals, outer.keys,
+        outer.vals, mesh, plan_npj(len(inner.keys)))
+    return 0, join_tuples
+
+
+def _out_of_core(args, timer, inner, outer, device, mesh):
     """phj --grace-bits or --stream-chunk-rows: both relations stay on
-    the host; the drivers stage what they need.  Returns (exit code,
-    algorithm, join tuples, report extras)."""
+    the host; the drivers stage what they need.  With a mesh (<threads>
+    > 1), Grace runs over its ranks.  Returns (exit code, algorithm,
+    join tuples, report extras)."""
     if args.grace_bits > 0:
         from .engine.grace import grace_join
+        from .parallel.grace_dist import grace_join_dist
 
         if not args.spill_dir:
             print("--grace-bits needs --spill-dir", file=sys.stderr)
             return 1, None, None, None
-        gres = timer.run(
-            "grace_join", grace_join, inner.keys, inner.vals, outer.keys,
-            outer.vals, f_bits=args.grace_bits,
-            chunk_rows=args.stream_chunk_rows or 32_000_000,
-            spill_dir=args.spill_dir, device=device)
+        chunk = args.stream_chunk_rows or 32_000_000
+        if mesh is not None:
+            gres = timer.run(
+                "grace_join", grace_join_dist, inner.keys, inner.vals,
+                outer.keys, outer.vals, mesh, f_bits=args.grace_bits,
+                chunk_rows=max(128, chunk // mesh.size),
+                spill_dir=args.spill_dir)
+        else:
+            gres = timer.run(
+                "grace_join", grace_join, inner.keys, inner.vals,
+                outer.keys, outer.vals, f_bits=args.grace_bits,
+                chunk_rows=chunk, spill_dir=args.spill_dir, device=device)
         return 0, "phj-grace", gres.join_tuples, {
             "partitions": 1 << gres.f_bits,
             "max_build_partition": max(
@@ -398,6 +507,7 @@ def main(argv=None):
             profiling.enter_context(profile(
                 activities=acts,
                 on_trace_ready=tensorboard_trace_handler(args.profile)))
+        mesh = _mesh(args)
         inner, outer, generated = _load_or_generate(args)
         timer = PhaseTimer()
         extras = None
@@ -405,15 +515,36 @@ def main(argv=None):
         if alg == "phj" and (args.grace_bits > 0
                              or args.stream_chunk_rows > 0):
             rc, alg, join_tuples, extras = _out_of_core(
-                args, timer, inner, outer, device)
+                args, timer, inner, outer, device, mesh)
+        elif alg == "cpra":
+            rc, join_tuples = _cpra(args, timer, inner, outer, mesh)
+        elif alg == "npj" and mesh is not None:
+            rc, join_tuples = _npj_dist(timer, inner, outer, mesh)
         elif alg == "npj":
             rc, join_tuples = _npj(args, timer, inner, outer, device)
         else:
             rc, join_tuples, extras = _phj(args, timer, inner, outer,
                                            device)
-    if rc:
-        return rc
-    return _finish(args, alg, timer, generated, join_tuples, extras)
+    if not rc:
+        rc = _finish(args, alg, timer, generated, join_tuples, extras,
+                     report=mesh is None or mesh.rank == 0)
+    # every rank exits with the same code
+    return rc if mesh is None else int(mesh.all_max([rc])[0])
+
+
+def _mesh(args):
+    """The ranks' mesh for the distributed modes (cpra, and npj or phj
+    --grace-bits with <threads> > 1), else None.  Brings up the process
+    group from torchrun's environment when there is one."""
+    if not (args.algorithm == "cpra" or (args.threads > 1 and (
+            args.algorithm == "npj" or (args.algorithm == "phj"
+                                        and args.grace_bits > 0)))):
+        return None
+    from .parallel.distributed import data_mesh, initialize
+
+    initialize(device=args.device)
+    return data_mesh(_mesh_devices(args.threads),
+                     device="cpu" if args.device == "cpu" else None)
 
 
 if __name__ == "__main__":

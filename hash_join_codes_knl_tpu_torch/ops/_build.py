@@ -53,6 +53,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 # what the last build did: seconds spent compiling (0.0 when a cached
 # library was loaded) and ptxas' report of registers and shared memory
@@ -144,3 +145,12 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count, where it
+    launches its kernel.  Under a lock: thread ranks (parallel/
+    distributed.py thread_meshes) launch concurrently, and a bare += can
+    lose an update."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -61,7 +61,7 @@ def flat_to_rows(keys: torch.Tensor, vals: torch.Tensor, cap: int,
     v = torch.empty(cap, dtype=torch.int32, device=keys.device)
     _build.launch("hjk_flat_to_rows", keys.device, keys, vals,
                   keys.shape[0], hk, v, cap, factor & 0xFFFFFFFF)
-    flat_to_rows.launches += 1
+    _build.count_launch(flat_to_rows)
     return hk.view(chunks, -1), v.view(chunks, -1)
 
 

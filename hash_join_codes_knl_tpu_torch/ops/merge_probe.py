@@ -165,7 +165,7 @@ def merge_probe(probe_hk, build_hk, build_val, wrow, tile: int,
                   probe_hk.shape[0], build_hk, build_val, build_hk.shape[0],
                   wrow, tile, window, mv, mc, max(1, chunks), geo.stage,
                   geo.entries, geo.threads, geo.tiles_per_block)
-    merge_probe.launches += 1
+    _build.count_launch(merge_probe)
     return mv, mc
 
 

@@ -110,7 +110,7 @@ def merge_probe_gather(probe_hk, build_hk, build_val, wrow, tile: int,
     _build.launch("hjk_merge_probe_gather", probe_hk.device, probe_hk,
                   probe_hk.shape[0], build_hk, build_val, build_hk.shape[0],
                   wrow, tile, window, mv, mc, max(1, chunks), piece, threads)
-    merge_probe_gather.launches += 1
+    _build.count_launch(merge_probe_gather)
     return mv, mc
 
 
@@ -184,7 +184,7 @@ def merge_probe_gather_indexed(probe_hk, build_hk, build_val, wrow_compact,
                   build_hk.shape[0], wrow_compact, tile_idx,
                   tile_idx.shape[0], tile, window, mv, mc, max(1, chunks),
                   piece, threads)
-    merge_probe_gather_indexed.launches += 1
+    _build.count_launch(merge_probe_gather_indexed)
     return mv, mc
 
 

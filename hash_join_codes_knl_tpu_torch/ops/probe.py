@@ -147,7 +147,7 @@ def probe_tiles(probe_keys, table_keys, table_vals, tile_pid, tile: int):
     _build.launch("hjk_probe_tiles", probe_keys.device, probe_keys,
                   tile_pid.shape[0], tile, table_keys, table_vals, slots,
                   tile_pid, mv, mc, stage, entries, threads, tiles_per_block)
-    probe_tiles.launches += 1
+    _build.count_launch(probe_tiles)
     return mv, mc
 
 

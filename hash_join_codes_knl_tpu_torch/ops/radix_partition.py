@@ -204,7 +204,7 @@ def radix_partition(hk, vals, bits: int, skip_bits: int = 0, cap: int = 0,
     _build.launch("hjk_radix_scatter", hk.device, hk, vals, regions, n, tile,
                   n_tiles, bits, skip_bits, dst, out_k, out_v,
                   scatter_geometry(bits)[0])
-    radix_partition.launches += 1
+    _build.count_launch(radix_partition)
     return out_k, out_v, counts, overflow
 
 

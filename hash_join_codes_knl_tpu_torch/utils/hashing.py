@@ -1,5 +1,5 @@
-"""The port's key domain, the multiplicative key scramble and the range
-hash.
+"""The port's key domain, the multiplicative key scramble, the range
+hash and the two-level tier hash.
 
 Counterpart of ``hash_join_codes_knl_tpu/utils/hashing.py``.  torch has
 no complete unsigned 32-bit type (``searchsorted``, ``max`` and ``>>``
@@ -22,6 +22,11 @@ import torch
 # int32 bit pattern of 0x80000000: the bias, and the biased null key
 BIAS = -(2**31)
 _MASK = 0xFFFFFFFF
+
+# second-level factor of the tier hash (odd, independent of any odd
+# `factor` a caller passes); the reference draws factors_2 per run
+# (phj.cpp:2134-2139), and any odd constant distinct from factor works
+DEFAULT_FACTOR2 = 0xC2B2AE3D
 
 
 def mod_inverse_u32(factor: int) -> int:
@@ -90,3 +95,63 @@ def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected an int32 bit tensor, got {t.dtype}")
     return t.detach().cpu().numpy().view(np.uint32)
+
+
+def np_hashed_key(keys: np.ndarray, factor: int) -> np.ndarray:
+    """(keys * factor) mod 2^32 on the host, as numpy uint32."""
+    return (np.asarray(keys, dtype=np.uint32) * np.uint32(factor)).astype(
+        np.uint32)
+
+
+def _check_tier_partitions(partitions: int) -> None:
+    if partitions % 2:
+        raise ValueError(
+            f"tier hash needs an even partition count, got {partitions}: "
+            "both tiers map into [0, 2*(P//2)), so an odd P would idle "
+            "the last partition silently"
+        )
+
+
+def np_hash_ratio(keys: np.ndarray, factor: int, partitions: int,
+                  ratio: float, factor2: int | None = None) -> np.ndarray:
+    """Host form of hash_ratio, as numpy uint32 partition ids."""
+    _check_tier_partitions(partitions)
+    if factor2 is None:
+        factor2 = DEFAULT_FACTOR2
+    cut = np.uint32(int((1.0 - ratio) * 100))
+    hk = np_hashed_key(keys, factor).astype(np.uint64)
+    hk2 = np_hashed_key(keys, factor2).astype(np.uint64)
+    tier = ((hk * np.uint64(100)) >> np.uint64(32)).astype(np.uint32) >= cut
+    half = partitions // 2
+    pid = ((hk2 * np.uint64(half)) >> np.uint64(32)).astype(np.uint32)
+    return np.where(tier, pid + np.uint32(half), pid)
+
+
+def hash_ratio(keys: torch.Tensor, factor: int, partitions: int,
+               ratio: float, factor2: int | None = None) -> torch.Tensor:
+    """The two-level tier+partition hash (simd_hash_ratio,
+    phj.cpp:101-116) of raw key bits, as int64 partition ids.
+
+    Tier = range_hash(key, factor, 100) against cut = (1-ratio)*100:
+    bins below the cut go to tier A (partitions [0, P/2), the
+    reference's DDR half), the rest to tier B ([P/2, P)).  The partition
+    within the half is a range hash of an independent second scramble
+    (factors_2 in the reference): with both levels from one scramble,
+    tier and partition are monotone in each other and half of each tier
+    receives no traffic."""
+    _check_tier_partitions(partitions)
+    if factor2 is None:
+        factor2 = DEFAULT_FACTOR2
+    cut = int((1.0 - ratio) * 100)
+    tier_b = range_hash(keys, factor, 100) >= cut
+    half = partitions // 2
+    pid = range_hash(keys, factor2, half)
+    return torch.where(tier_b, pid + half, pid)
+
+
+def radix_bits(hk: torch.Tensor, hi_bit: int, bits: int) -> torch.Tensor:
+    """`bits` bits of the unsigned (unbiased) hk ending just below
+    `hi_bit` from the top, as int64: hi_bit=32, bits=6 is the top six
+    bits, the next pass hi_bit=26."""
+    u = hk.to(torch.int64) & _MASK
+    return (u >> (hi_bit - bits)) & ((1 << bits) - 1)

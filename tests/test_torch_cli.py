@@ -1,13 +1,17 @@
 """The port's single-device CLI against the JAX package's CLI on the
 CPU, on the same argv (the port's with ``--device cpu``): the files
 `write` produces are byte-identical, and join_tuples, the AGGREGATE
-line and the CHECK OK stats are equal; the cardinality gate, the flag
-errors and the refusals of the modes not ported yet exit as the JAX
-CLI's do (tests/test_cli.py's single-device cases)."""
+line and the CHECK OK stats are equal; the cardinality gate and the
+flag errors exit as the JAX CLI's do (tests/test_cli.py's single-device
+cases); the distributed modes (cpra, npj and phj --grace-bits with
+<threads> > 1) report as the JAX CLI's do, in one process and over
+four torchrun ranks."""
 
 import json
 import os
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -16,6 +20,7 @@ from hash_join_codes_knl_tpu.cli import main as jax_main
 from hash_join_codes_knl_tpu_torch.cli import main
 
 CPU = ["--device", "cpu"]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(capsys, fn, argv):
@@ -179,18 +184,85 @@ def test_phj_aggregate_mn_like_jax(tmp_path, capsys):
     assert 0 < g <= 512
 
 
+def _same_report(out_t, out_j):
+    """Equal reports up to the timings: every key but the seconds and the
+    rate, with equal values."""
+    def fixed(out):
+        return {k: v for k, v in out.items()
+                if not k.endswith("_s") and k != "tuples_per_s"}
+
+    assert fixed(out_t) == fixed(out_j)
+
+
 @pytest.mark.parametrize("argv", [
     ["cpra", "1", "2048", "1024"],
     ["cpra", "8", "8192", "1024", "--timelog"],
+    ["cpra", "8", "8192", "1024", "0.75"],
+    ["cpra", "8", "8192", "1024", "--chunks", "4"],
+    ["cpra", "2", "8192", "1024", "--seed", "7", "--timelog", "0.5"],
     ["npj", "2", "4096", "512"],
-    ["phj", "2", "4096", "1024", "--stream-chunk-rows", "1024",
-     "--grace-bits", "2", "--spill-dir", "x"],
-    ["phj", "4", "4096", "1024", "--grace-bits", "2", "--spill-dir", "x"],
-], ids=["cpra", "cpra-timelog", "npj-threads", "stream", "grace"])
-def test_modes_not_ported_exit_2(capsys, argv):
-    rc, out, err = _run(capsys, main, argv + CPU)
-    assert rc == 2 and out is None
-    assert "not ported yet" in err
+    ["phj", "4", "4096", "1024", "--grace-bits", "2",
+     "--stream-chunk-rows", "2048"],
+], ids=["cpra", "cpra-timelog", "cpra-tier", "cpra-chunks",
+        "cpra-timelog-tier", "npj-threads", "grace-threads"])
+def test_distributed_modes_like_jax(capsys, tmp_path, argv):
+    """The distributed modes through both CLIs on the same argv: equal
+    exit codes, join_tuples and reports (with no torchrun world the
+    port's <threads> clamps to one rank, where the JAX CLI takes that
+    many virtual devices), nothing on standard error."""
+    if "--grace-bits" in argv:
+        outs = _out_of_core_both(capsys, tmp_path, argv + ["--json"])
+        _same_report(*outs)
+        assert outs[0]["algorithm"] == "phj-grace"
+        return
+    (rc_t, out_t, err_t), (rc_j, out_j, err_j) = _both(capsys,
+                                                       argv + ["--json"])
+    assert rc_t == rc_j == 0
+    assert err_t == err_j == ""
+    _same_report(out_t, out_j)
+    assert out_t["join_tuples"] == int(argv[2])
+    if "--timelog" in argv:
+        assert {"exchange_s", "local_join_s"} <= set(out_t) & set(out_j)
+
+
+def test_cpra_timelog_replans_a_narrow_window(capsys, monkeypatch):
+    """The staged cpra pins its geometry per attempt: a local window too
+    narrow for the received spans is re-planned from the measured span
+    (more slack would only add pads), and the reported phases are the
+    successful attempt's."""
+    import dataclasses
+
+    from hash_join_codes_knl_tpu_torch.engine import config
+
+    plan_join = config.plan_join
+    monkeypatch.setattr(config, "plan_join", lambda *a, **k: dataclasses.replace(
+        plan_join(*a, **k), tile=1024, window=128, probe_chunks=8))
+    rc, out, err = _run(capsys, main, ["cpra", "1", "8192", "1024",
+                                       "--timelog", "--json"] + CPU)
+    assert rc == 0, err
+    assert out["join_tuples"] == 8192
+    assert {"exchange_s", "local_join_s"} <= set(out)
+
+
+def test_cpra_under_torchrun_like_jax(capsys):
+    """cpra over four gloo ranks (torchrun, --device cpu), the pipelined
+    step: rank 0 alone prints the report, equal to the JAX CLI's over
+    four virtual devices, and every rank exits 0."""
+    argv = ["cpra", "4", "16384", "1024", "--chunks", "4", "--json"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "--no-python", sys.executable, "-m",
+         "hash_join_codes_knl_tpu_torch.cli", *argv, "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    reports = [json.loads(line) for line in proc.stdout.splitlines()
+               if line.startswith("{")]
+    assert len(reports) == 1
+    rc_j, out_j, _ = _run(capsys, jax_main, argv)
+    assert rc_j == 0
+    assert set(reports[0]) == set(out_j)
+    _same_report(reports[0], out_j)
+    assert "pipelined exchange+join_s" in reports[0]
 
 
 def _out_of_core_both(capsys, tmp_path, argv, runs=1):

@@ -927,3 +927,132 @@ def test_tuner_pick_cached_per_device_name(cuda, tmp_path, monkeypatch):
     with pytest.raises(AssertionError, match="timed again"):
         tune.tuned_probe_chunks(2_000_000, tile=1024, candidates=(8, 16),
                                 cache_path=path)
+
+
+def _dist_relations(seed=5, ni=4096, no=65536, **kw):
+    inner, outer, _ = generate(seed=seed, inner_tuples=ni, outer_tuples=no,
+                               mode=kw.pop("mode", "uniform"), **kw)
+    return inner.keys, inner.vals, outer.keys, outer.vals
+
+
+def _dist_runs(meshes, cols, with_padded=True):
+    """Every distributed path of parallel/ over `meshes`: cpra_join with
+    the sort pack, the radix pack, tier routing, skew and (with_padded)
+    a padded radix local plan; the pipelined and two-level steps;
+    npj_join_dist; grace_join_dist.  Per rank: the columns of every
+    result, on the host."""
+    import tempfile
+
+    from hash_join_codes_knl_tpu_torch.parallel import cpra
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        run_ranks,
+        shard_null_padded,
+        split_2level,
+    )
+    from hash_join_codes_knl_tpu_torch.parallel.grace_dist import (
+        grace_join_dist,
+    )
+    from hash_join_codes_knl_tpu_torch.parallel.npj_dist import (
+        npj_join_dist,
+    )
+
+    W = len(meshes)
+    plan = JoinPlan(p_bits=6, slots=512, tile=512, pass_bits=(6,))
+    padded = JoinPlan(p_bits=4, slots=1024, tile=128, pass_bits=(4,),
+                      partition_impl="radix", probe_impl="pallas")
+    spill = tempfile.mkdtemp()
+
+    def host(res):
+        return [t.cpu() for t in (res.probe_keys, res.probe_vals,
+                                  res.match_vals, res.match_cnts,
+                                  res.build_counts)]
+
+    def body(m):
+        out = {}
+        runs = [("sort", {}), ("radix", dict(pack_impl="radix")),
+                ("tier", dict(tier_ratio=0.75))]
+        if with_padded:
+            runs.append(("padded", dict(plan=padded)))
+        for name, kw in runs:
+            kw.setdefault("plan", plan)
+            out[name] = host(cpra.cpra_join(*cols, m, slack=4.0, **kw)[0])
+        res, heavy, _ = cpra.cpra_join(*cols, m, plan, slack=4.0, skew=True,
+                                       heavy_frac=1 / 64)
+        out["skew"] = host(res) + [t.cpu() for t in heavy]
+        args = [shard_null_padded(c, m) for c in cols]
+        ni, no = len(cols[0]), len(cols[2])
+        if W > 1:
+            res, ovf = cpra.make_cpra_step_pipelined(
+                m, plan, 4 * ni // W**2, 4 * no // W**2, 4)(*args)
+            out["pipelined"] = host(res) + [ovf]
+            h, c = split_2level(m, 2)
+            res, ovf = cpra.make_cpra_step_2level(
+                h, c, plan, 4 * ni // W, 4 * no // W)(*args)
+            out["2level"] = host(res) + [ovf]
+        mv, mc, total, _ = npj_join_dist(*cols, m)
+        out["npj"] = [mv, mc, total]
+        g = grace_join_dist(*cols, m, f_bits=4, chunk_rows=ni,
+                            spill_dir=f"{spill}/{m.device.type}")
+        out["grace"] = [g.join_tuples, [(p.build_rows, p.probe_rows,
+                                         p.join_tuples) for p in g.partitions]]
+        return out
+
+    return run_ranks(meshes, body, timeout_s=600)
+
+
+def _same_runs(got, want):
+    for r, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for name in g:
+            for a, b in zip(g[name], w[name]):
+                if isinstance(a, torch.Tensor):
+                    assert torch.equal(a, b), (r, name)
+                elif isinstance(a, np.ndarray):
+                    np.testing.assert_array_equal(a, b, err_msg=name)
+                else:
+                    assert a == b, (r, name)
+
+
+def test_distributed_thread_ranks_on_card_match_cpu(cuda):
+    """Four gloo thread ranks sharing the card: every distributed path's
+    results equal, rank by rank and slot by slot, the same ranks' run on
+    the CPU (the plain versions); the kernels were launched."""
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        thread_meshes,
+    )
+
+    cols = _dist_relations()
+    before = {k: f.launches for k, f in (
+        ("rp", rp.radix_partition), ("pt", pt.probe_tiles),
+        ("cl", cl.flat_to_rows))}
+    got = _dist_runs(thread_meshes(4, cuda, timeout_s=300), cols)
+    assert all(f.launches > before[k] for k, f in (
+        ("rp", rp.radix_partition), ("pt", pt.probe_tiles),
+        ("cl", cl.flat_to_rows)))
+    _same_runs(got, _dist_runs(thread_meshes(4, "cpu", timeout_s=300), cols))
+
+
+def test_distributed_nccl_world_of_one_on_card(cuda, tmp_path):
+    """A world of one NCCL rank (a FileStore): cpra_join's shortcut and
+    its full skew step on Zipf z=1.0 probes, npj_join_dist and
+    grace_join_dist equal the CPU world of one.  (A padded radix plan
+    overflows its pass's run bound on these probes, on both devices.)"""
+    import torch.distributed as dist
+
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        data_mesh,
+        initialize,
+        thread_meshes,
+    )
+
+    cols = _dist_relations(seed=6, mode="zipf", zipf=1.0)
+    initialize(f"file://{tmp_path}/store", world_size=1, rank=0,
+               backend="nccl")
+    try:
+        mesh = data_mesh()
+        assert mesh.size == 1 and mesh.device.type == "cuda"
+        got = _dist_runs([mesh], cols, with_padded=False)
+    finally:
+        dist.destroy_process_group()
+    _same_runs(got, _dist_runs(thread_meshes(1, "cpu"), cols,
+                               with_padded=False))

@@ -66,3 +66,38 @@ def test_bias_preserves_unsigned_order():
 def test_to_numpy_rejects_non_bit_tensors():
     with pytest.raises(TypeError):
         th.to_numpy_u32(torch.zeros(3, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("partitions,ratio", [(2, 0.5), (8, 0.7), (4, 0.25),
+                                              (16, 0.999)])
+def test_hash_ratio_like_jax(partitions, ratio):
+    """The two-level tier hash, on the device and on the host, equals the
+    JAX package's slot for slot."""
+    keys = _keys()
+    want = np.asarray(jh.hash_ratio(jnp.asarray(keys), DEFAULT_FACTOR,
+                                    partitions, ratio))
+    got = th.hash_ratio(th.u32_to_device(keys, "cpu"), DEFAULT_FACTOR,
+                        partitions, ratio).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        th.np_hash_ratio(keys, DEFAULT_FACTOR, partitions, ratio),
+        jh.np_hash_ratio(keys, DEFAULT_FACTOR, partitions, ratio))
+
+
+def test_hash_ratio_refuses_odd_partitions():
+    keys = np.arange(1, 9, dtype=np.uint32)
+    with pytest.raises(ValueError, match="even"):
+        th.hash_ratio(th.u32_to_device(keys, "cpu"), DEFAULT_FACTOR, 3, 0.5)
+    with pytest.raises(ValueError, match="even"):
+        th.np_hash_ratio(keys, DEFAULT_FACTOR, 3, 0.5)
+
+
+@pytest.mark.parametrize("hi_bit,bits", [(32, 6), (26, 6), (32, 1),
+                                         (12, 12), (31, 31)])
+def test_radix_bits_like_jax(hi_bit, bits):
+    hk = th.np_hashed_key(_keys(), DEFAULT_FACTOR)
+    np.testing.assert_array_equal(hk, jh.np_hashed_key(_keys(),
+                                                       DEFAULT_FACTOR))
+    want = np.asarray(jh.radix_bits(jnp.asarray(hk), hi_bit, bits))
+    got = th.radix_bits(th.u32_to_device(hk, "cpu"), hi_bit, bits).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -91,6 +91,10 @@ def test_join_runs_without_jax_modules():
         "mv, mc, _ = hjt.npj_join(i.keys, i.vals, o.keys, o.vals, "
         "device='cpu')\n"
         "assert int(mc.sum()) == 16384\n"
+        "mesh = hjt.data_mesh(device='cpu')\n"
+        "res, _ = hjt.cpra_join(i.keys, i.vals, o.keys, o.vals, mesh, "
+        "skew=True)[::2]\n"
+        "assert int(res.join_tuples) <= 16384\n"
         "bad = [m for m in sys.modules if m == 'hash_join_codes_knl_tpu' "
         "or m.startswith('hash_join_codes_knl_tpu.')]\n"
         "print(bad)\n"
@@ -275,3 +279,33 @@ def test_build_library_named_by_source_hash():
     from hash_join_codes_knl_tpu_torch import native
 
     assert os.path.dirname(native.library_path()) == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("entry", [
+    "data_mesh", "thread_meshes", "cpra_join", "npj_join_dist",
+    "grace_join_dist"])
+def test_distributed_entries_default_to_the_card(tmp_path, entry):
+    """The distributed entry points run on their mesh's device, the card
+    unless told otherwise: the meshes default to it, and without one
+    they raise and never run on the host."""
+    import hash_join_codes_knl_tpu_torch as hjt
+    from hash_join_codes_knl_tpu_torch.parallel.distributed import (
+        thread_meshes,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    k = np.arange(1, 513, dtype=np.uint32)
+    calls = {
+        "data_mesh": lambda: hjt.data_mesh(),
+        "thread_meshes": lambda: thread_meshes(2),
+        "cpra_join": lambda: hjt.cpra_join(k, k, k, k, hjt.data_mesh()),
+        "npj_join_dist": lambda: hjt.npj_join_dist(k, k, k, k,
+                                                   hjt.data_mesh()),
+        "grace_join_dist": lambda: hjt.grace_join_dist(
+            k, k, k, k, hjt.data_mesh(), f_bits=2, spill_dir=str(tmp_path)),
+    }
+    # on a CPU mesh, asked for, the same entry runs
+    assert hjt.data_mesh(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
