@@ -31,7 +31,14 @@ npj_join_dist at 4M x 16M), then four gloo thread ranks sharing the card
 skew, the pipelined and two-level steps and a padded radix local plan;
 npj_join_dist; grace_join_dist at 16M x 64M and its resume), each
 against join_oracle's digest, and the kernels it launched held against
-their plain versions on rank 0's inputs there.
+their plain versions on rank 0's inputs there.  Last, the surface path,
+as a user runs it: bench_torch.py at 16M x 256M (exact), the config
+matrix (scripts/torch_bench_configs.py) at full size for the rows no
+other phase times and at --small for every row, the stream, Grace and
+scaling benches at 4M x 64M, the five examples (each a process, whose
+kernel launch counts come back through a file written at its exit),
+then __graft_entry_torch__'s entry() against the same step on the CPU
+and dryrun_multichip(4) on four thread ranks.
 
     python3 chip_smoke.py
 
@@ -66,10 +73,16 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from hash_join_codes_knl_tpu_torch.utils.bench import grace_data, picks
+from hash_join_codes_knl_tpu_torch.utils.trace import (
+    device_intervals as _device_intervals,
+)
+from hash_join_codes_knl_tpu_torch.utils.trace import union_us as _union_us
 from hash_join_codes_knl_tpu_torch.utils.roofline import (
     H100_SXM_BYTES_PER_S,
 )
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = (16_000_000, 256_000_000)  # bench.py's shape
 HEADLINE_4M = (4_000_000, 64_000_000)  # the digest check's shape
 RADIX_4M = (4_000_000, 16_000_000)  # the phj_radix_4096way bench row
@@ -663,20 +676,25 @@ def _kernel_radix_partition(cols_h) -> dict:
                 **bound, shape=f"pass 1 of (6, 6): n={HEADLINE[1]} F=64")
 
 
-def _wrappers() -> dict:
-    """Every kernel wrapper by name; each counts its launches."""
-    from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
-    from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
-    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
-    from hash_join_codes_knl_tpu_torch.ops import probe as pt
-    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+# every kernel wrapper by name: (module of ops/, function); each counts
+# its launches
+WRAPPERS = {"flat_to_rows": ("chunk_layout", "flat_to_rows"),
+            "merge_probe": ("merge_probe", "merge_probe"),
+            "merge_probe_gather": ("merge_probe_gather",
+                                   "merge_probe_gather"),
+            "merge_probe_gather_indexed": ("merge_probe_gather",
+                                           "merge_probe_gather_indexed"),
+            "probe_tiles": ("probe", "probe_tiles"),
+            "radix_partition": ("radix_partition", "radix_partition")}
 
-    return {"flat_to_rows": cl.flat_to_rows,
-            "merge_probe": mp.merge_probe,
-            "merge_probe_gather": mg.merge_probe_gather,
-            "merge_probe_gather_indexed": mg.merge_probe_gather_indexed,
-            "probe_tiles": pt.probe_tiles,
-            "radix_partition": rp.radix_partition}
+
+def _wrappers() -> dict:
+    """Every kernel wrapper by name."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"hash_join_codes_knl_tpu_torch.ops.{mod}"), fn)
+        for name, (mod, fn) in WRAPPERS.items()}
 
 
 def _launches():
@@ -1245,42 +1263,6 @@ def phase_npj(dev, label, cols, want):
     return plan
 
 
-def _union_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, reach = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > reach:
-            total += b - max(a, reach)
-            reach = b
-    return total
-
-
-def _device_intervals(fn, want=()) -> list:
-    """(kernel name, start us, end us) of every device interval of one
-    fn() under torch.profiler, after one warm-up call; the trace must
-    hold a kernel whose name contains each string of `want`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    # now and then torch.profiler comes back with no device events, or
-    # without one of the call's kernels; the call is traced again then,
-    # and a third such trace fails
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ks = [(e.name, e.time_range.start, e.time_range.end)
-              for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if ks and all(any(w in name for name, _, _ in ks) for w in want):
-            return ks
-        _print(f"the profiler's trace missed device intervals ({len(ks)} "
-               f"intervals, wanted {want}); tracing again")
-    raise AssertionError(f"three traces missed device intervals {want}")
-
-
 RADIX_SPLIT = (("histogram", "radix_histogram_kernel"),
                ("scatter", "radix_scatter_kernel"),
                ("prefill", "FillFunctor"))
@@ -1624,29 +1606,6 @@ def _host_seconds(module, names):
             setattr(module, n, real[n])
 
 
-def _picks(dev, ik: np.ndarray, no: int, seed: int, factor: int):
-    """`no` uniform picks from the build keys `ik`, made on the card in
-    slices (scripts/bench_stream.py's probe side), values key * factor:
-    host numpy uint32 (keys, values)."""
-    from hash_join_codes_knl_tpu_torch.utils.hashing import (
-        mul_u32,
-        to_numpy_u32,
-        u32_to_device,
-    )
-
-    g = torch.Generator(device=dev).manual_seed(seed)
-    ik_d = u32_to_device(ik, dev)
-    ok = np.empty(no, np.uint32)
-    ov = np.empty(no, np.uint32)
-    step = 100_000_000
-    for s in range(0, no, step):
-        n = min(step, no - s)
-        k = ik_d[torch.randint(0, len(ik), (n,), device=dev, generator=g)]
-        ok[s:s + n] = to_numpy_u32(k)
-        ov[s:s + n] = to_numpy_u32(mul_u32(k, factor))
-    return ok, ov
-
-
 def _transfer_line(res) -> str:
     t = res.transfer
     return (f"H2D {t['h2d_bytes'] / 1e9:.3f} GB in {t['h2d_ms']:.3f} ms of "
@@ -1669,7 +1628,7 @@ def _outofcore_stream(dev) -> None:
     if np.unique(inner.keys).size != ni:
         raise AssertionError("stream: build keys not distinct")
     t0 = time.perf_counter()
-    ok, ov = _picks(dev, inner.keys, no, 7, 0x85EBCA77)
+    ok, ov = picks(dev, inner.keys, no, 7, 0x85EBCA77)
     pick_s = time.perf_counter() - t0
     for run in (1, 2):
         before = _launches()
@@ -1766,32 +1725,6 @@ def _outofcore_resume(dev, want) -> None:
            f"{want}")
 
 
-def _grace_data(dev, ni: int, no: int):
-    """The grace_join_256Mx1000M row's data (scripts/bench_grace.py),
-    made on the card: ni distinct nonzero build keys (draws made unique,
-    then a random permutation), values key * 0x9E3779B1; no probe rows
-    picked from them, values key * 0x85EBCA77.  Host numpy columns."""
-    from hash_join_codes_knl_tpu_torch.utils.hashing import (
-        mul_u32,
-        to_numpy_u32,
-        u32_to_i32,
-    )
-
-    g = torch.Generator(device=dev).manual_seed(11)
-    u = torch.unique(torch.randint(1, 2**32, (int(ni * 1.12),),
-                                   device=dev, generator=g))
-    if u.numel() < ni:
-        raise AssertionError(f"grace: {u.numel()} distinct draws < {ni}")
-    keys = u32_to_i32(u[torch.randperm(u.numel(), device=dev,
-                                       generator=g)[:ni]])
-    del u
-    ik = to_numpy_u32(keys)
-    iv = to_numpy_u32(mul_u32(keys, 0x9E3779B1))
-    del keys
-    ok, ov = _picks(dev, ik, no, 12, 0x85EBCA77)
-    return ik, iv, ok, ov
-
-
 def _mem_available() -> int:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -1829,7 +1762,7 @@ def _outofcore_grace(dev) -> None:
         no = max(ni, int(fit) // chunk * chunk)
         _print(f"phase outofcore: grace probe side CUT to {no} rows to fit")
     t0 = time.perf_counter()
-    ik, iv, ok, ov = _grace_data(dev, ni, no)
+    ik, iv, ok, ov = grace_data(dev, ni, no)
     gen_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as d:
         runs = []
@@ -2296,7 +2229,7 @@ def _dist_threads(dev, pool, meshes, data_h, want_h, uni_4m, want_4m,
     del out
     torch.cuda.empty_cache()
     gi, gp, f_bits = DIST_GRACE
-    ik, iv, ok, ov = _grace_data(dev, gi, gp)
+    ik, iv, ok, ov = grace_data(dev, gi, gp)
     with tempfile.TemporaryDirectory() as tmp:
         grace = lambda m: grace_join_dist(ik, iv, ok, ov, m, f_bits=f_bits,
                                           spill_dir=tmp)
@@ -2468,6 +2401,344 @@ def phase_distributed(dev, head_med, data_h, zipf_h, want_4m, want_z4m,
     return inputs
 
 
+# --- the surface phase: the bench harness, the examples and the graft
+# entry, as a user runs them
+
+# runs a repo file as __main__ (argv: counts file, file, its arguments)
+# and, at the interpreter's exit, writes every wrapper's launch count
+_COUNTED = """
+import atexit, importlib, json, runpy, sys
+wrappers = json.loads(sys.argv[1])
+counts_path = sys.argv[2]
+
+def dump():
+    counts = {}
+    for name, (mod, fn) in wrappers.items():
+        m = importlib.import_module("hash_join_codes_knl_tpu_torch.ops." + mod)
+        counts[name] = getattr(m, fn).launches
+    with open(counts_path, "w") as f:
+        json.dump(counts, f)
+
+atexit.register(dump)
+sys.argv = sys.argv[3:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def _start_counted(rel, args, tmp):
+    """Popen of repo file `rel` with `args`, its stdout and stderr to
+    files in `tmp`; its launch counts go to a file there at its exit."""
+    tag = f"{os.path.basename(rel)[:-3]}_{len(os.listdir(tmp))}"
+    files = {k: os.path.join(tmp, f"{tag}.{k}")
+             for k in ("out", "err", "counts")}
+    with open(files["out"], "w") as out, open(files["err"], "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _COUNTED, json.dumps(WRAPPERS),
+             files["counts"], os.path.join(REPO, rel), *args],
+            cwd=REPO, stdout=out, stderr=err)
+    return proc, rel, args, files
+
+
+def _finish_counted(started, counts, timeout=900) -> str:
+    """Wait for a _start_counted process; raise on a non-zero exit; add
+    its launch counts to `counts`; return its standard output."""
+    proc, rel, args, files = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    out = open(files["out"]).read()
+    if rc != 0:
+        raise AssertionError(f"{rel} {args}: exit {rc}; stdout "
+                             f"{out[-2000:]!r}; stderr "
+                             f"{open(files['err']).read()[-3000:]!r}")
+    with open(files["counts"]) as f:
+        for name, n in json.load(f).items():
+            counts[name] += n
+    return out
+
+
+def _run_counted(rel, args, tmp, counts) -> str:
+    return _finish_counted(_start_counted(rel, args, tmp), counts)
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _surface_bench(tmp, counts) -> None:
+    """bench_torch.py at 16M x 256M: exact join_tuples, no error."""
+    t0 = time.perf_counter()
+    out = _last_json(_run_counted("bench_torch.py", [], tmp, counts))
+    want = HEADLINE[1]
+    if "error" in out or out["join_tuples"] != want:
+        raise AssertionError(f"bench_torch.py: {out}")
+    _print(f"phase surface: bench_torch.py ({time.perf_counter() - t0:.1f} "
+           f"s as a process) {json.dumps(out)}")
+
+
+# the matrix rows no other phase times, run at full size
+FULL_ROWS = ("phj_zipf_0.75", "radix_4096", "npj_chain")
+
+
+def _surface_configs(tmp, counts) -> dict:
+    """scripts/torch_bench_configs.py: FULL_ROWS at full size (merged
+    into one file), every row at --small; every row present, validated
+    by the script and timed.  Returns the full-size rows."""
+    full = os.path.join(tmp, "bench_results_torch.json")
+    t0 = time.perf_counter()
+    for only in FULL_ROWS:
+        _run_counted("scripts/torch_bench_configs.py",
+                     ["--only", only, "--out", full], tmp, counts)
+    small = os.path.join(tmp, "bench_results_torch_small.json")
+    _run_counted("scripts/torch_bench_configs.py",
+                 ["--small", "--out", small], tmp, counts)
+    rows_full, rows_small = json.load(open(full)), json.load(open(small))
+    want_full = {"phj_zipf_0.75", "phj_radix_4096way", "npj_chain",
+                 "npj_chain_unique"}
+    if set(rows_full) != want_full or len(rows_small) != 12 or not all(
+            r["seconds"] > 0 for r in [*rows_full.values(),
+                                       *rows_small.values()]):
+        raise AssertionError(f"bench matrix rows: {sorted(rows_full)} "
+                             f"{sorted(rows_small)}")
+    for label, rows in (("full size", rows_full), ("--small", rows_small)):
+        for name, row in rows.items():
+            _print(f"phase surface: matrix {label} {name}: "
+                   f"{json.dumps(row)}")
+    _print(f"phase surface: matrix rows in {time.perf_counter() - t0:.1f} s")
+    return rows_full
+
+
+def _surface_outofcore(tmp, counts) -> None:
+    """The stream, Grace and scaling benches at 4M x 64M arguments (the
+    full stream and Grace shapes run in phase_outofcore), all exact."""
+    runs = (
+        ("scripts/torch_bench_stream.py",
+         ["--inner", "4000000", "--outer", "64000000", "--chunk",
+          "16000000"]),
+        ("scripts/torch_bench_grace.py",
+         ["--build", "4000000", "--probe", "64000000", "--f-bits", "4",
+          "--chunk", "16000000"]),
+    )
+    for rel, args in runs:
+        out = _last_json(_run_counted(rel, args, tmp, counts))
+        if out["cardinality_exact"] is not True:
+            raise AssertionError(f"{rel}: {out}")
+        _print(f"phase surface: {rel} {json.dumps(out)}")
+    path = os.path.join(tmp, "scaling_results_torch.json")
+    _run_counted("scripts/torch_bench_scaling.py",
+                 ["--inner", "1000000", "--outer", "16000000", "--ranks",
+                  "4", "--reps", "2", "--out", path], tmp, counts)
+    from hash_join_codes_knl_tpu_torch.relation import expected_join_tuples
+
+    res = json.load(open(path))
+    for m in (1, 2, 4):
+        if res[str(m)]["join_tuples"] != expected_join_tuples(
+                1_000_000 * m, 16_000_000 * m):
+            raise AssertionError(f"scaling {m} ranks: {res[str(m)]}")
+    _print(f"phase surface: scripts/torch_bench_scaling.py {json.dumps(res)}")
+
+
+def _surface_examples(tmp, counts) -> None:
+    """The five examples on the card, at once (none is timed)."""
+    started = [_start_counted(f"examples/torch_{name}.py", args, tmp)
+               for name, args in (
+                   ("basic_join", []), ("dataframe_style", []),
+                   ("out_of_core", [os.path.join(tmp, "spill")]),
+                   ("multichip", []), ("aggregate", []))]
+    for s in started:
+        out = _finish_counted(s, counts)
+        lines = " | ".join(out.strip().splitlines())
+        _print(f"phase surface: {s[1]}: {lines}")
+
+
+def _surface_graft(dev) -> None:
+    """entry() on the card, equal slot for slot to the same step on the
+    CPU, and dryrun_multichip(4) on four thread ranks sharing the card."""
+    import __graft_entry_torch__ as graft
+
+    from hash_join_codes_knl_tpu_torch.engine.convert import result_to_numpy
+
+    fn, args = graft.entry()
+    got = result_to_numpy(fn(*args))
+    fn_c, args_c = graft.entry(device="cpu")
+    want = result_to_numpy(fn_c(*args_c))
+    if any(not np.array_equal(got[k], want[k]) for k in got) or int(
+            got["match_cnts"].sum()) != 16384:
+        raise AssertionError("entry(): the card's result differs from the "
+                             "CPU's")
+    t0 = time.perf_counter()
+    graft.dryrun_multichip(4)
+    _print(f"phase surface: entry() equal to the CPU's slot for slot "
+           f"(16384 tuples); dryrun_multichip(4) exact on every step in "
+           f"{time.perf_counter() - t0:.2f} s")
+
+
+def _check_slots(label, res, ik, iv, ok, ov) -> None:
+    """Every probe slot of a join result at full size against a plain
+    searchsorted join on the card (the build keys must be unique): the
+    probe rows all present (count and sums of keys and values), and each
+    slot's match count and matched value."""
+    def u64(t):
+        return t.to(torch.int64) & 0xFFFFFFFF
+
+    bk, order = torch.sort(u64(ik))
+    if int((bk[1:] == bk[:-1]).sum()):
+        raise AssertionError(f"{label}: the build keys repeat")
+    pk = u64(res.probe_keys)
+    live, ok_live = pk != 0, ok != 0  # key 0 is the null key
+    for got, want in ((int(live.sum()), int(ok_live.sum())),
+                      (int(pk.sum()), int(u64(ok).sum())),
+                      (int(u64(res.probe_vals)[live].sum()),
+                       int(u64(ov)[ok_live].sum()))):
+        if got != want:
+            raise AssertionError(f"{label}: the probe rows differ from the "
+                                 f"input ({got} != {want})")
+    pos = torch.searchsorted(bk, pk).clamp_(max=bk.numel() - 1)
+    hit = (bk[pos] == pk) & live
+    del pk, bk
+    want_v = torch.where(hit, iv[order[pos]], 0)
+    del order, pos
+    if not (torch.equal(res.match_cnts, hit.to(torch.int32)) and torch.equal(
+            torch.where(hit, res.match_vals, 0), want_v)):
+        raise AssertionError(f"{label}: match counts or values differ from "
+                             f"the searchsorted join")
+
+
+def _radix_passes(label, hk, v, pass_bits) -> int:
+    """multipass_partition's passes one by one, each kernel call held
+    against its plain version on the same inputs (the kernel's output
+    feeds the next pass); the largest difference."""
+    from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+
+    err, skip, regions = 0, 0, 1
+    for b in pass_bits:
+        args = (hk, v, b, skip, 0, 32768, regions)
+        got, want = rp.radix_partition(*args), rp.radix_partition_torch(*args)
+        _check_equal(f"radix_partition, {label} pass skip={skip}", got, want)
+        if int(got[3]):
+            raise AssertionError(f"{label}: radix pass overflowed")
+        err = max(err, _max_abs_err(got, want))
+        hk, v, regions, skip = got[0], got[1], got[2].shape[0], skip + b
+    return err
+
+
+def _surface_kernel_checks(dev, inner_h, rows) -> dict:
+    """The kernels at the shapes only the surface path runs, on the
+    matrix rows' own relations and plans, held against their plain
+    versions: phj_zipf_0.75 (16M x 256M, join()'s re-planned plan, which
+    must be the row's): K1 on the probe side, K3 on 256 spread tiles and
+    over all tiles against K2, and every slot of the join's result
+    against a searchsorted join; phj_radix_4096way (4M x 16M, (6, 6)):
+    both radix passes of each side, the tile probe on 256 spread tiles
+    and over its whole layout, and every slot of the join's result.
+    Runs after the path's counts are read.  Returns the largest
+    difference per kernel."""
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.engine.convert import (
+        relation_to_device,
+    )
+    from hash_join_codes_knl_tpu_torch.engine.phj import (
+        _merge_params,
+        _scrambled,
+        join,
+    )
+    from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe as mp
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+    from hash_join_codes_knl_tpu_torch.ops import probe as pt
+
+    errs = {}
+    (_, outer_z), _ = _generate(*HEADLINE, seed=43, mode="zipf", zipf=0.75)
+    cols = (*relation_to_device(inner_h, dev),
+            *relation_to_device(outer_z, dev))
+    del outer_z
+    res, zplan = join(*cols, plan_join(*HEADLINE, device=dev))
+    row = rows["phj_zipf_0.75"]
+    if (zplan.tile, zplan.window or "auto", zplan.probe_chunks) != (
+            row["tile"], row["window"], row["probe_chunks"]):
+        raise AssertionError(f"phj_zipf_0.75: plan {zplan} is not the "
+                             f"row's {row}")
+    _check_slots("phj_zipf_0.75", res, *cols)
+    del res
+    cap = _merge_params(zplan, *HEADLINE)[3]
+    args = (cols[2], cols[3], cap, max(1, zplan.probe_chunks), zplan.factor)
+    got, want = cl.flat_to_rows(*args), cl.flat_to_rows_torch(*args)
+    _check_equal("flat_to_rows, phj_zipf_0.75's probe side", got, want)
+    errs["flat_to_rows"] = _max_abs_err(got, want)
+    del got, want
+    bhk, bval, ohk, _, wrow, tile, window = _stages(cols, zplan)
+    n_tiles = ohk.shape[0] // tile
+    sel = torch.linspace(0, n_tiles - 1, 256, device=dev).long()
+    sub = (ohk.view(n_tiles, tile)[sel].reshape(-1).contiguous(), bhk, bval,
+           wrow[sel].contiguous(), tile, window)
+    got, want = mg.merge_probe_gather(*sub), mg.merge_probe_torch(*sub)
+    _check_equal("merge_probe_gather, phj_zipf_0.75 (256 tiles)", got, want)
+    errs["merge_probe_gather"] = _max_abs_err(got, want)
+    full = (ohk, bhk, bval, wrow, tile, window, max(1, zplan.probe_chunks))
+    _check_equal("merge_probe_gather vs merge_probe, phj_zipf_0.75, all "
+                 "tiles", mg.merge_probe_gather(*full), mp.merge_probe(*full))
+    zgeo = f"tile {tile}, window {window}, {n_tiles} tiles"
+    del cols, bhk, bval, ohk, wrow, sub, full, got, want
+    torch.cuda.empty_cache()
+
+    inner_r, outer_r = _generate(*RADIX_4M, seed=44, mode="uniform")[0]
+    cols = (*relation_to_device(inner_r, dev),
+            *relation_to_device(outer_r, dev))
+    del inner_r, outer_r
+    plan = _radix_4096_plan()
+    res, _ = join(*cols, plan)
+    _check_slots("phj_radix_4096way", res, *cols)
+    del res
+    errs["radix_partition"] = max(
+        _radix_passes(f"phj_radix_4096way's {side} side",
+                      *_scrambled(k, v, plan.factor), plan.pass_bits)
+        for side, k, v in (("build", *cols[:2]), ("probe", *cols[2:])))
+    lay = _padded_stages(*cols, plan)
+    if int(lay["build_counts"][-1]):
+        raise AssertionError("phj_radix_4096way: the layout overflowed")
+    tile = 128  # radix regions take a 128-slot tile (engine/phj.py)
+    pk_s, tp_s, sel = _spread_tiles(lay["pk"], lay["tpid"], tile, 256)
+    sub = (pk_s, lay["tk"], lay["tv"], tp_s, tile)
+    got, want = pt.probe_tiles(*sub), pt.probe_tiles_torch(*sub)
+    _check_equal("probe_tiles, phj_radix_4096way (256 tiles)", got, want)
+    errs["probe_tiles"] = _max_abs_err(got, want)
+    _check_full_probe("probe_tiles, phj_radix_4096way, all tiles",
+                      (lay["pk"], lay["tk"], lay["tv"], lay["tpid"], tile),
+                      sel, want)
+    _print(f"phase surface: kernels equal to their plain versions at the "
+           f"matrix rows' own shapes (phj_zipf_0.75: {HEADLINE[0]} x "
+           f"{HEADLINE[1]}, {zgeo}, K3 equal to K2 on all of them; "
+           f"phj_radix_4096way: {RADIX_4M[0]} x {RADIX_4M[1]}, "
+           f"{lay['tpid'].shape[0]} tiles of {tile}, row slots "
+           f"{lay['tk'].shape[1]}); every probe slot of both rows' joins "
+           f"equal to a searchsorted join; max abs err {errs}")
+    return errs
+
+
+def phase_surface(dev) -> tuple:
+    """The repo's surface as a user runs it: bench_torch.py, the config
+    matrix, the out-of-core and scaling benches, the five examples (each
+    a process), entry() and dryrun_multichip(4).  Returns the launch
+    counts of the processes it started (their own processes count
+    them) and the matrix's full-size rows."""
+    counts = dict.fromkeys(WRAPPERS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        _surface_bench(tmp, counts)
+        _stamp("the surface phase's bench_torch.py")
+        rows = _surface_configs(tmp, counts)
+        _stamp("the surface phase's config matrix")
+        _surface_outofcore(tmp, counts)
+        _stamp("the surface phase's stream, Grace and scaling benches")
+        _surface_examples(tmp, counts)
+        _stamp("the surface phase's examples")
+    _surface_graft(dev)
+    _stamp("the surface phase's graft entry")
+    return counts, rows
+
+
 KERNELS = [
     ("flat_to_rows", "hash_join_codes_knl_tpu_torch/csrc/chunk_layout.cu",
      "hash_join_codes_knl_tpu/ops/chunk_layout.py:61"),
@@ -2494,6 +2765,8 @@ CLI_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
 OUTOFCORE_KERNELS = ["flat_to_rows", "merge_probe_gather", "radix_partition"]
 DIST_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
                 "probe_tiles", "radix_partition"]
+# K4 runs only on a two-class plan, which no surface entry point makes
+SURFACE_KERNELS = DIST_KERNELS
 
 
 def main() -> None:
@@ -2654,18 +2927,31 @@ def _main_paths(dev) -> None:
                                zipf_4m)
     distributed = _launches()
     _print(f"launches, distributed path: {distributed}")
+    inner_h = data_h[0]  # the matrix rows' build side
     del uni_4m, zipf_4m, data_h, zipf_h
     torch.cuda.empty_cache()
     for name, err in _dist_kernel_checks(inputs.pop("meshes"),
                                          inputs).items():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
     _stamp("the distributed kernel checks")
+    torch.cuda.empty_cache()
+
+    _set_launches()
+    by_processes, rows = phase_surface(dev)
+    surface = {k: n + by_processes[k] for k, n in _launches().items()}
+    _print(f"launches, surface path: {surface}")
+    torch.cuda.empty_cache()
+    for name, err in _surface_kernel_checks(dev, inner_h, rows).items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    del inner_h
+    _stamp("the surface kernel checks")
     for path, names, got in (("merge", MERGE_KERNELS, merge),
                              ("padded", PADDED_KERNELS, padded),
                              ("npj", NPJ_KERNELS, npj),
                              ("cli", CLI_KERNELS, cli),
                              ("out-of-core", OUTOFCORE_KERNELS, outofcore),
-                             ("distributed", DIST_KERNELS, distributed)):
+                             ("distributed", DIST_KERNELS, distributed),
+                             ("surface", SURFACE_KERNELS, surface)):
         for name in names:
             if got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the "
@@ -2676,7 +2962,7 @@ def _main_paths(dev) -> None:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=(merge[name] + padded[name] + npj[name]
                               + cli[name] + outofcore[name]
-                              + distributed[name]),
+                              + distributed[name] + surface[name]),
                     library_ms=None, **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))

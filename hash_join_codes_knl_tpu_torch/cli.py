@@ -484,14 +484,21 @@ def main(argv=None):
 
     import torch
 
-    from .utils.timing import PhaseTimer
-
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device is available: the joins run on the card; "
               "pass --device cpu to run the plain versions on the host",
               file=sys.stderr)
         return 1
     device = torch.device(args.device)
+    # the process group _mesh brings up lives until every rank has its
+    # exit code; the caller's own group stays up
+    with contextlib.ExitStack() as group:
+        return _run(args, device, group)
+
+
+def _run(args, device, group):
+    from .utils.timing import PhaseTimer
+
     profiling = contextlib.ExitStack()
     with profiling:
         if args.profile:
@@ -507,7 +514,7 @@ def main(argv=None):
             profiling.enter_context(profile(
                 activities=acts,
                 on_trace_ready=tensorboard_trace_handler(args.profile)))
-        mesh = _mesh(args)
+        mesh = _mesh(args, group)
         inner, outer, generated = _load_or_generate(args)
         timer = PhaseTimer()
         extras = None
@@ -532,17 +539,18 @@ def main(argv=None):
     return rc if mesh is None else int(mesh.all_max([rc])[0])
 
 
-def _mesh(args):
+def _mesh(args, group):
     """The ranks' mesh for the distributed modes (cpra, and npj or phj
     --grace-bits with <threads> > 1), else None.  Brings up the process
-    group from torchrun's environment when there is one."""
+    group from torchrun's environment when there is one, for as long as
+    the exit stack `group` is open."""
     if not (args.algorithm == "cpra" or (args.threads > 1 and (
             args.algorithm == "npj" or (args.algorithm == "phj"
                                         and args.grace_bits > 0)))):
         return None
-    from .parallel.distributed import data_mesh, initialize
+    from .parallel.distributed import data_mesh, process_group
 
-    initialize(device=args.device)
+    group.enter_context(process_group(device=args.device))
     return data_mesh(_mesh_devices(args.threads),
                      device="cpu" if args.device == "cpu" else None)
 

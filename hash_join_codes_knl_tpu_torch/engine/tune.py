@@ -27,6 +27,8 @@ import time
 
 import torch
 
+from ..utils.bench import sync
+
 DEFAULT_CANDIDATES = (48, 56, 64, 72)
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -59,12 +61,20 @@ def _device_name(device) -> str:
     return torch.cuda.get_device_name(device)
 
 
+def _key(outer_n: int, tile: int, cset: str, device) -> str:
+    """The cache key of a verdict: (probe rows, tile, candidate set,
+    torch version, device name)."""
+    return (f"{outer_n}|{tile}|{cset}|{torch.__version__}|"
+            f"{_device_name(device)}")
+
+
 def _time_sort(outer_n: int, C: int, tile: int, reps: int, device) -> float:
     """Least seconds over `reps` runs of the merge plan's probe sort
     (engine/phj.py ``_merge_sort_probe``: K1 into (C, cap/C), each chunk
     sorted) on random columns of outer_n rows, each run between two
     synchronizes, after one warm-up.  The minimum, not the median: noise
-    only ever adds time, and at reps=2 a median is the maximum."""
+    only ever adds time, and at reps=2 a median is the maximum.  The
+    tuner times on the card; cached_sort_seconds also on the CPU."""
     from .config import DEFAULT_FACTOR
     from .phj import _merge_sort_probe
 
@@ -83,10 +93,10 @@ def _time_sort(outer_n: int, C: int, tile: int, reps: int, device) -> float:
     ts = []
     for r in range(1, reps + 1):
         k, v = columns(r)
-        torch.cuda.synchronize(device)
+        sync(device)
         t0 = time.perf_counter()
         _merge_sort_probe(k, v, cap, C, DEFAULT_FACTOR)
-        torch.cuda.synchronize(device)
+        sync(device)
         ts.append(time.perf_counter() - t0)
     return min(ts)
 
@@ -117,7 +127,7 @@ def tuned_probe_chunks(
     # by its window-feasibility cap, and a verdict timed under a narrow
     # cap must not be reused where more C values are admissible
     cset = ",".join(str(C) for C in candidates)
-    key = f"{outer_n}|{tile}|{cset}|{torch.__version__}|{_device_name(dev)}"
+    key = _key(outer_n, tile, cset, dev)
     path = cache_path or _cache_path()
     cache = _load_cache(path)
     if key in cache:
@@ -142,3 +152,20 @@ def tuned_probe_chunks(
     except OSError:
         pass  # an unwritable cache costs a re-timing next time, no more
     return best
+
+
+def cached_sort_seconds(outer_n: int, tile: int, C: int, device,
+                        reps: int = 2) -> tuple[float, str]:
+    """(seconds, source) of the probe sort at chunk count C for this
+    geometry on `device`: the time a tuner cache row for (outer_n, tile)
+    under this torch and device recorded for C, else ``_time_sort`` now
+    (least of `reps`; not cached).  The CPU is always timed."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        for key, row in _load_cache(_cache_path()).items():
+            parts = key.split("|")
+            if (len(parts) > 2 and str(C) in row["times"]
+                    and key == _key(outer_n, tile, parts[2], device)):
+                return float(row["times"][str(C)]), f"tuner cache {key}"
+    return (_time_sort(outer_n, C, tile, reps, device),
+            f"timed: _time_sort C={C}, least of {reps}")

@@ -30,6 +30,7 @@ of its inputs, so re-running it is safe.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -203,6 +204,21 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
         dist.init_process_group(backend, init_method="env://")
 
 
+@contextlib.contextmanager
+def process_group(**kw):
+    """initialize(**kw) for the block.  A group that this brought up is
+    destroyed when the block ends, so it is never left to the
+    interpreter's exit (gloo can abort there); a group the caller set up
+    stays up."""
+    was_up = dist.is_initialized()
+    initialize(**kw)
+    try:
+        yield
+    finally:
+        if not was_up and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def data_mesh(n_devices: int | None = None, axis: str = "x",
               device=None) -> Mesh:
     """This rank's mesh over the whole world: the WORLD group when one is
@@ -329,14 +345,19 @@ def split_2level(mesh: Mesh, hosts: int) -> tuple:
 
 
 def shard_null_padded(x, mesh: Mesh) -> torch.Tensor:
-    """This rank's block of a replicated host column (numpy uint32 or
-    np.memmap), null-padded to a multiple of the mesh size first: key 0
-    is the inert null everywhere, so any relation length shards, and the
-    pads land at the tail of the last block.  Only the block is read."""
+    """This rank's block of a replicated column (numpy uint32, np.memmap,
+    or an int32 bit tensor on the rank's device), null-padded to a
+    multiple of the mesh size first: key 0 is the inert null everywhere,
+    so any relation length shards, and the pads land at the tail of the
+    last block.  Only the block is read."""
     n = len(x)
     block = -(-n // mesh.size)
     lo = min(n, mesh.rank * block)
     hi = min(n, lo + block)
+    if isinstance(x, torch.Tensor):
+        out = torch.zeros(block, dtype=torch.int32, device=mesh.device)
+        out[: hi - lo] = x[lo:hi]
+        return out
     out = np.zeros(block, np.uint32)
     out[: hi - lo] = np.asarray(x[lo:hi], dtype=np.uint32)
     return u32_to_device(out, mesh.device)

@@ -343,3 +343,45 @@ def test_profile_writes_a_trace(tmp_path, capsys):
     assert rc == 0 and out["join_tuples"] == 2048
     assert any(f.name.endswith(".json")
                for f in os.scandir(tmp_path / "trace"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_cpra_tears_down_the_group_it_brought_up(capsys, monkeypatch):
+    """A world of one brought up from torchrun-style environment
+    variables: the CLI destroys the group it made before it returns, so
+    the interpreter's exit never tears gloo down (which can abort)."""
+    import torch.distributed as dist
+
+    for var, value in (("WORLD_SIZE", "1"), ("RANK", "0"),
+                       ("LOCAL_RANK", "0"), ("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", str(_free_port()))):
+        monkeypatch.setenv(var, value)
+    assert not dist.is_initialized()
+    rc, out, err = _run(capsys, main, ["cpra", "1", "4096", "512",
+                                       "--json"] + CPU)
+    assert rc == 0, err
+    assert out["join_tuples"] == 4096
+    assert not dist.is_initialized()
+
+
+def test_cpra_keeps_the_callers_group(capsys):
+    """A group the caller set up stays up after the CLI returns."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        rc, out, err = _run(capsys, main, ["cpra", "1", "4096", "512",
+                                           "--json"] + CPU)
+        assert rc == 0, err
+        assert out["join_tuples"] == 4096
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()

@@ -18,18 +18,22 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hash_join_codes_knl_tpu_torch")
 # modules of the JAX package the port, chip_smoke.py and the port's
-# scripts may import: none
+# root files, scripts and examples may import: none
 ALLOWED = set()
 JAX_PKG = "hash_join_codes_knl_tpu"
 
 
 def _port_files():
-    """The port's modules, chip_smoke.py and the port's scripts
-    (scripts/torch_*.py), which run on the machine with the card too."""
-    scripts = os.path.join(REPO, "scripts")
-    out = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(scripts, f) for f in os.listdir(scripts)
-        if f.startswith("torch_") and f.endswith(".py")]
+    """The port's modules, its root files (chip_smoke.py, bench_torch.py,
+    __graft_entry_torch__.py), its scripts (scripts/torch_*.py) and its
+    examples (examples/torch_*.py), which run on the machine with the
+    card too."""
+    out = [os.path.join(REPO, f) for f in
+           ("chip_smoke.py", "bench_torch.py", "__graft_entry_torch__.py")]
+    for sub in ("scripts", "examples"):
+        d = os.path.join(REPO, sub)
+        out += [os.path.join(d, f) for f in os.listdir(d)
+                if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

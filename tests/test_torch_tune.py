@@ -162,3 +162,22 @@ def test_plan_join_takes_the_tuned_count(monkeypatch):
     plan_join(16_000_000, 200_000_000, tile=3072, device="cuda")
     assert seen == [(256_000_000, 3072, 64, (48, 56, 64), "cuda"),
                     (200_000_000, 3072, 50, (48,), "cuda")]
+
+
+def test_cached_sort_seconds(tmp_path, monkeypatch, fake_card):
+    """The tuner cache's time for a chunk count of this geometry, device
+    and torch, with the row's key as its source; a count the row lacks,
+    another tile or the CPU is timed (and not cached)."""
+    monkeypatch.setenv("HJK_TUNE_CACHE", str(tmp_path / "tune.json"))
+    card = torch.device("cuda")
+    assert tune.tuned_probe_chunks(1_000_000, candidates=(48, 64)) == 48
+    del fake_card[:]
+    s, src = tune.cached_sort_seconds(1_000_000, 3072, 64, card)
+    assert (s, src) == (64.0, f"tuner cache {_key(1_000_000, (48, 64))}")
+    assert fake_card == []
+    for tile, C, device in ((3072, 2048, card), (1024, 48, card),
+                            (3072, 48, "cpu")):
+        s, src = tune.cached_sort_seconds(1_000_000, tile, C, device)
+        assert s == float(C) and src.startswith("timed")
+    assert fake_card == [2048, 48, 48]
+    assert len(json.load(open(tmp_path / "tune.json"))) == 1
