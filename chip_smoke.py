@@ -31,7 +31,16 @@ npj_join_dist at 4M x 16M), then four gloo thread ranks sharing the card
 skew, the pipelined and two-level steps and a padded radix local plan;
 npj_join_dist; grace_join_dist at 16M x 64M and its resume), each
 against join_oracle's digest, and the kernels it launched held against
-their plain versions on rank 0's inputs there.  Last, the surface path,
+their plain versions on rank 0's inputs there.  Then the fuzz path: every
+draw of the randomized differential campaigns (tests/torch_fuzz_cases.py,
+the draws of tests/test_fuzz.py) on the card against the same draw on
+the CPU and the oracle, and four draws at 16M x 256M with a random tile
+and chunk count (the uniform relation, a two-class plan on it, a Zipf
+0.75 relation, a heavy-hitter probe side) against join_oracle's digest;
+all six kernels must launch there, and after its counts are read K1,
+the probe each draw's plan dispatches and K4 (on the two-class draw's
+own tile list) are held against their plain versions on those draws.
+Last, the surface path,
 as a user runs it: bench_torch.py at 16M x 256M (exact), the config
 matrix (scripts/torch_bench_configs.py) at full size for the rows no
 other phase times and at --small for every row, the stream, Grace and
@@ -910,14 +919,12 @@ def phase_zipf_headline(dev):
     return data, cols, plan, want
 
 
-def _two_class_plan(cols, plan):
-    """The two-class plan for these columns, from the single-class plan
-    that join() settled on: the per-tile spans at that plan (the anchors
-    _merge_windows uses), the narrow window from the p90 span, the wide
-    window the single-class one, and wide_cap the count of tiles past the
-    narrow window rounded up to a multiple of 128.  Returns (plan, span
-    quantiles p50/p90/p99/max, wide tile count).  Its sorts launch K1,
-    which is set-up, not the path's: the launch counts are put back."""
+def _tile_spans(cols, plan):
+    """The per-tile spans of these columns at the single-class plan that
+    join() settled on (the anchors _merge_windows uses): (span at the
+    plan's window, a function of a window giving the spans at it, the
+    window).  Its sorts launch K1, which is set-up, not the path's: the
+    launch counts are put back."""
     from hash_join_codes_knl_tpu_torch.engine import phj
 
     counts = _launches()
@@ -930,18 +937,43 @@ def _two_class_plan(cols, plan):
     _set_launches(counts)
     wrow_raw, hi_row = phj._window_rows(bhk, ohk, tile, rows)
     del bhk, ohk
-    span = phj._anchored(wrow_raw, hi_row, window, rows)[1]
-    qs = torch.quantile(span.double(), torch.tensor(
-        [0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=span.device))
-    qs = [int(q) for q in qs.tolist()]
+
+    def at(w):
+        return phj._anchored(wrow_raw, hi_row, w, rows)[1]
+
+    return at(window), at, window
+
+
+def _span_quantiles(span, qs) -> list:
+    q = torch.quantile(span.double(), torch.tensor(
+        qs, dtype=torch.float64, device=span.device))
+    return [int(x) for x in q.tolist()]
+
+
+def _two_class_from(plan, at, window, narrow):
+    """The two-class plan at this narrow window: the wide window the
+    single-class one, wide_cap the count of tiles past the narrow window
+    rounded up to a multiple of 128.  Returns (plan, wide tile count)."""
+    n_wide = int((at(narrow) > narrow).sum())
+    two = dataclasses.replace(plan, window=narrow, window_wide=window,
+                              wide_cap=max(128, -(-n_wide // 128) * 128))
+    return two, n_wide
+
+
+def _two_class_plan(cols, plan):
+    """The two-class plan for these columns, from the single-class plan
+    that join() settled on: the narrow window from the p90 tile span and
+    the rest as _two_class_from sets it.  Returns (plan, span quantiles
+    p50/p90/p99/max, wide tile count)."""
+    from hash_join_codes_knl_tpu_torch.engine import phj
+
+    span, at, window = _tile_spans(cols, plan)
+    qs = _span_quantiles(span, [0.5, 0.9, 0.99, 1.0])
     narrow = phj.window_from_span(qs[1])
     if narrow >= window:
         raise AssertionError(f"two-class: the p90 span's window {narrow} is "
                              f"not below the single-class window {window}")
-    span = phj._anchored(wrow_raw, hi_row, narrow, rows)[1]
-    n_wide = int((span > narrow).sum())
-    two = dataclasses.replace(plan, window=narrow, window_wide=window,
-                              wide_cap=max(128, -(-n_wide // 128) * 128))
+    two, n_wide = _two_class_from(plan, at, window, narrow)
     return two, qs, n_wide
 
 
@@ -999,13 +1031,19 @@ def phase_two_class(dev, cols, plan, want):
     return two, n_wide
 
 
-def _kernel_indexed(dev, cols, two, n_wide) -> dict:
-    """K4 against its plain version on 256 entries spread over the
-    two-class layout's tile list (wide tiles, narrow pads, and 8 repeated
-    entries), written onto the narrow pass's outputs; then K4's time on
-    the whole wide pass.  Runs outside the counted path runs."""
+# the engine's merge probes (engine/phj.py _PROBES) by their wrappers'
+# names
+_PROBE_NAMES = {"merge_pallas": "merge_probe",
+                "merge_gather": "merge_probe_gather"}
+
+
+def _two_class_layout(cols, two):
+    """A two-class plan's layout of these columns, through the engine's
+    own stages, and its narrow pass's outputs (the probe the plan
+    dispatches at the narrow window): a namespace of ohk, bhk, bval,
+    wrow, tidx, wrow_c (the wide pass's tile list and anchors), mv0, mc0,
+    tile, window (the narrow one), impl (the narrow probe's name)."""
     from hash_join_codes_knl_tpu_torch.engine import phj
-    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
 
     ik, iv, ok, ov = cols
     tile, window, rows, cap = phj._merge_params(two, ik.shape[0],
@@ -1017,13 +1055,49 @@ def _kernel_indexed(dev, cols, two, n_wide) -> dict:
     if int(stats[0]) or int(wide_ovf):
         raise AssertionError(f"two-class layout overflowed: {stats.tolist()}"
                              f", wide past the cap {int(wide_ovf)}")
-    narrow = phj._PROBES[phj._merge_impl(two, window)]
-    mv0, mc0 = narrow(ohk, bhk, bval, wrow, tile, window)
-    wide = two.window_wide
-    n = tidx.shape[0]
+    impl = phj._merge_impl(two, window)
+    mv0, mc0 = phj._PROBES[impl](ohk, bhk, bval, wrow, tile, window)
+    return SimpleNamespace(ohk=ohk, bhk=bhk, bval=bval, wrow=wrow,
+                           tidx=tidx, wrow_c=wrow_c, mv0=mv0, mc0=mc0,
+                           tile=tile, window=window, impl=_PROBE_NAMES[impl])
+
+
+def _k4_vs_plain(dev, lay, two, label):
+    """K4 against its plain version on 256 entries spread over the
+    layout's tile list (wide tiles, narrow pads, and 8 repeated entries),
+    written onto the narrow pass's outputs, its blocks over the plan's
+    chunks as the engine runs it.  Returns (max abs err, the entries'
+    positions in the list, their tile ids and anchors, K4's outputs)."""
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+
+    n = lay.tidx.shape[0]
     sel = torch.linspace(0, n - 1, 248, device=dev).long()
     sel = torch.cat([sel, sel[:8]])
-    ti, wc = tidx[sel].contiguous(), wrow_c[sel].contiguous()
+    ti, wc = lay.tidx[sel].contiguous(), lay.wrow_c[sel].contiguous()
+
+    def args():  # onto fresh copies of the narrow pass's outputs
+        return (lay.ohk, lay.bhk, lay.bval, wc, ti, lay.mv0.clone(),
+                lay.mc0.clone(), lay.tile, two.window_wide)
+
+    got = mg.merge_probe_gather_indexed(*args(), two.probe_chunks)
+    want = mg.merge_probe_gather_indexed_torch(*args())
+    _check_equal(f"merge_probe_gather_indexed, 256 entries of {label}", got,
+                 want)
+    return _max_abs_err(got, want), sel, ti, wc, got
+
+
+def _kernel_indexed(dev, cols, two, n_wide) -> dict:
+    """K4 against its plain version on 256 entries spread over the
+    two-class layout's tile list (_k4_vs_plain); then K4's time on the
+    whole wide pass.  Runs outside the counted path runs."""
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+
+    lay = _two_class_layout(cols, two)
+    ohk, bhk, bval, tile = lay.ohk, lay.bhk, lay.bval, lay.tile
+    wrow_c, tidx, mv0, mc0 = lay.wrow_c, lay.tidx, lay.mv0, lay.mc0
+    wide, n = two.window_wide, lay.tidx.shape[0]
+    err, sel, ti, wc, got = _k4_vs_plain(
+        dev, lay, two, "the 16M x 256M Zipf two-class layout")
 
     def args(mv, mc):
         return (ohk, bhk, bval, wc, ti, mv, mc, tile, wide)
@@ -1031,19 +1105,13 @@ def _kernel_indexed(dev, cols, two, n_wide) -> dict:
     def k4(*a):  # the blocks over the plan's chunks, as the engine runs it
         return mg.merge_probe_gather_indexed(*a, two.probe_chunks)
 
-    got = k4(*args(mv0.clone(), mc0.clone()))
-    want = mg.merge_probe_gather_indexed_torch(*args(mv0.clone(),
-                                                     mc0.clone()))
-    _check_equal("merge_probe_gather_indexed, 256 entries", got, want)
-    err = _max_abs_err(got, want)
-
     def listed_bound(ids, anchors, mc):
         ids = ids.long()
         return _search_bound(ohk.view(-1, tile)[ids], anchors, wide,
                              bhk.shape[0], mc.view(-1, tile)[ids], 8)
 
     bound = listed_bound(ti, wc, got[1])
-    del got, want
+    del got
     mv, mc = mv0.clone(), mc0.clone()
     ms = _median_ms(lambda: k4(*args(mv, mc)), 20)
     queued = _queued_ms(lambda: k4(*args(mv, mc)))
@@ -2395,10 +2463,248 @@ def phase_distributed(dev, head_med, data_h, zipf_h, want_4m, want_z4m,
         inputs = _dist_threads(dev, pool, meshes, data_h, want_h, uni_4m,
                                want_4m, zipf_4m, want_z4m)
         inputs["meshes"] = meshes
+        inputs["want_h"] = want_h()  # the fuzz phase's uniform draws read it
     finally:
         pool.shutdown(wait=True)
     _stamp("the distributed phase's thread ranks")
     return inputs
+
+
+# --- the fuzz phase: the randomized differential campaigns of
+# tests/test_fuzz.py (tests/torch_fuzz_cases.py) on the card, then
+# full-width draws of random plan geometry
+
+FUZZ_SEED = 1107  # the full-width draws' plans, relations and hot key
+FUZZ_TILES = (1024, 1536, 2048, 2560, 3072)
+
+
+def _fuzz_small(dev, tmp) -> dict:
+    """Every draw of tests/torch_fuzz_cases.py on the card against the
+    same draw on the CPU (every output, slot for slot, final plans
+    included) and against the port's oracle (card_vs_cpu there).  The
+    CPU half launches nothing: a wrapper launches only on a CUDA tensor.
+    Returns the draws run by campaign."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_fuzz_cases as fz
+
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+
+    done: dict = {}
+    for campaign, seed in fz.all_draws():
+        before = _launches()
+        if not fz.card_vs_cpu(campaign, seed, dev,
+                              os.path.join(tmp, f"{campaign}_{seed}"),
+                              join_oracle, multiset_digest):
+            continue  # a side cut empty for its ranks (test_fuzz skips it)
+        launched = _delta(before)
+        done.setdefault(campaign, []).append(seed)
+        _print(f"phase fuzz: {campaign} seed {seed}: card equals CPU and "
+               f"the oracle; launches "
+               f"{ {k: n for k, n in launched.items() if n} }")
+    return done
+
+
+def _fuzz_plan(rng):
+    """plan_join at the headline shape with a random tile and chunk count
+    (the tuner's candidates and below, at most the window cap's c_win);
+    the window auto."""
+    from hash_join_codes_knl_tpu_torch.engine.config import plan_join
+    from hash_join_codes_knl_tpu_torch.engine.tune import DEFAULT_CANDIDATES
+
+    ni, no = HEADLINE
+    tile = int(rng.choice(FUZZ_TILES))
+    c_win = (12_500 * no) // (tile * ni)
+    pool = tuple(range(8, min(DEFAULT_CANDIDATES), 8)) + DEFAULT_CANDIDATES
+    chunks = int(rng.choice([c for c in pool if c <= c_win]))
+    return plan_join(ni, no, tile=tile, probe_chunks=chunks)
+
+
+def _fuzz_wide_join(dev, pool, label, data, plan, want) -> tuple:
+    """join() of a full-width draw on the card: the cardinality and the
+    matched rows' digest (selected on the card, digested on the host
+    pool) against the oracle's digest.  Returns (columns, final plan)."""
+    from hash_join_codes_knl_tpu_torch.engine.phj import join
+
+    cols = _device_cols(data, dev)
+    before = _launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, final = join(*cols, plan)
+    got_n = int(res.join_tuples)
+    dt = time.perf_counter() - t0
+    d = _delta(before)
+    got = _rows_digest(pool, [res])
+    del res
+    want = want() if callable(want) else want
+    if got_n != want[0] or got != want:
+        raise AssertionError(f"fuzz {label}: join_tuples {got_n}, digest "
+                             f"{got} != oracle {want}")
+    _print(f"phase fuzz: {label} {HEADLINE[0]} x {HEADLINE[1]}: "
+           f"join_tuples {got_n} and the "
+           f"rows' digest equal the oracle's; {dt:.3f} s incl. re-plans; "
+           f"plan {plan} -> final {final}; launches "
+           f"{ {k: n for k, n in d.items() if n} }")
+    return cols, final
+
+
+def _fuzz_relations(rng, data_h):
+    """The full-width draws' new relations: a Zipf 0.75 pair and the
+    heavy-hitter pair (a random share of the uniform probe side set to
+    one random build key; the build side unique)."""
+    zipf, gen_s = _generate(*HEADLINE, seed=int(rng.integers(1, 2**31)),
+                            mode="zipf", zipf=0.75)
+    inner, outer = data_h
+    share = float(rng.uniform(0.2, 0.5))
+    hot = inner.keys[int(rng.integers(0, len(inner.keys)))]
+    keys = outer.keys.copy()
+    keys[rng.random(len(keys), dtype=np.float32) < share] = hot
+    _print(f"phase fuzz: Zipf 0.75 {HEADLINE[0]} x {HEADLINE[1]} generated "
+           f"in {gen_s:.3f} s; "
+           f"heavy hitter key {int(hot)} on {share:.4f} of the probes")
+    return zipf, (inner, SimpleNamespace(keys=keys, vals=outer.vals))
+
+
+def _fuzz_two_class(rng, cols, final):
+    """A two-class plan on these columns: the narrow window the tile span
+    at a random quantile (0.5, 0.75 or 0.9) rounded up to 128 slots, so
+    that the tiles past it go to the wide pass at the single-class
+    window.  Fails unless it is below that window and leaves a wide
+    tile."""
+    span, at, window = _tile_spans(cols, final)
+    q = float(rng.choice([0.5, 0.75, 0.9]))
+    narrow = -(-_span_quantiles(span, [q])[0] // 128) * 128
+    two, n_wide = _two_class_from(final, at, window, narrow)
+    if narrow >= window or n_wide == 0:
+        raise AssertionError(f"fuzz two-class: the q{q} span's window "
+                             f"{narrow} against {window}, {n_wide} wide "
+                             f"tiles")
+    return two, (f"two-class (narrow window {narrow} from the q{q} span, "
+                 f"{n_wide} wide tiles)")
+
+
+def _fuzz_wide(dev, rng, plans, wide) -> list:
+    """At most four draws at 16M x 256M, each with a random plan: the
+    uniform relation, a two-class plan on it (no re-plan, K4 launched),
+    the Zipf 0.75 relation, the heavy-hitter one.  `wide` holds the
+    uniform, Zipf and heavy-hitter relations with their oracle digests
+    (the last two futures on the host pool).  Returns each draw's
+    (label, relations, final plan) for _fuzz_kernel_checks."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    try:
+        (data_h, want_h), (zipf, want_z), (heavy, want_hv) = wide
+        cols, final = _fuzz_wide_join(dev, pool, "uniform", data_h,
+                                      plans[0], want_h)
+        two, label = _fuzz_two_class(rng, cols, final)
+        before = _launches()
+        _, final2 = _fuzz_wide_join(dev, pool, label, data_h, two, want_h)
+        if final2 != two or _delta(before)["merge_probe_gather_indexed"] == 0:
+            raise AssertionError(f"fuzz two-class: re-planned to {final2} "
+                                 f"or K4 not launched")
+        del cols
+        torch.cuda.empty_cache()
+        _, final_z = _fuzz_wide_join(dev, pool, "Zipf 0.75", zipf, plans[1],
+                                     want_z)
+        torch.cuda.empty_cache()
+        _, final_hv = _fuzz_wide_join(dev, pool, "heavy hitter", heavy,
+                                      plans[2], want_hv)
+    finally:
+        pool.shutdown(wait=True)
+    torch.cuda.empty_cache()
+    return [("uniform", data_h, final), (label, data_h, two),
+            ("Zipf 0.75", zipf, final_z), ("heavy hitter", heavy, final_hv)]
+
+
+def phase_fuzz(dev, data_h, want_h) -> list:
+    """The full-width draws' relations and plans first (their oracle
+    digests start on a host pool), then every campaign draw on the card
+    against the CPU, then the full-width joins; the phase's launch
+    counts are read by the caller.  Returns the full-width draws
+    (_fuzz_wide)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(FUZZ_SEED)
+    plans = [_fuzz_plan(rng) for _ in range(3)]
+    zipf, heavy = _fuzz_relations(rng, data_h)
+    oracles = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+    try:
+        wide = [(data_h, want_h), (zipf, _digest_chunked(zipf, oracles)),
+                (heavy, _digest_chunked(heavy, oracles))]
+        with tempfile.TemporaryDirectory() as tmp:
+            done = _fuzz_small(dev, tmp)
+        counts = {c: len(s) for c, s in done.items()}
+        _print(f"phase fuzz: {sum(counts.values())} draws of "
+               f"tests/torch_fuzz_cases.py equal on the card and the CPU "
+               f"and to the oracle {counts} after "
+               f"{time.perf_counter() - t0:.1f} s; launches {_launches()}")
+        t1 = time.perf_counter()
+        draws = _fuzz_wide(dev, rng, plans, wide)
+    finally:
+        oracles.shutdown(wait=True)
+    _print(f"phase fuzz: the full-width draws in "
+           f"{time.perf_counter() - t1:.1f} s; the phase "
+           f"{time.perf_counter() - t0:.1f} s")
+    return draws
+
+
+def _fuzz_kernel_checks(dev, draws) -> dict:
+    """The kernels at the shapes only the fuzz path's full-width draws
+    give them, each held against its plain version on the draw's own
+    relations and final plan: K1 on the probe side; the probe the plan
+    dispatches (K2 or K3; on the two-class draw its narrow pass) on 256
+    tiles spread over the layout; on the two-class draw, K4 on 256
+    entries of its own tile list (_k4_vs_plain).  Runs after the path's
+    counts are read.  Returns the largest difference per kernel."""
+    from hash_join_codes_knl_tpu_torch.engine import phj
+    from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
+    from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
+
+    errs: dict = {}
+
+    def held(name, label, got, want):
+        _check_equal(f"{name}, fuzz {label}", got, want)
+        errs[name] = max(errs.get(name, 0), _max_abs_err(got, want))
+
+    geo = []
+    for label, data, plan in draws:
+        cols = _device_cols(data, dev)
+        tile, window, _, cap = phj._merge_params(plan, cols[0].shape[0],
+                                                 cols[2].shape[0])
+        args = (cols[2], cols[3], cap, max(1, plan.probe_chunks),
+                plan.factor)
+        held("flat_to_rows", label, cl.flat_to_rows(*args),
+             cl.flat_to_rows_torch(*args))
+        if plan.window_wide:
+            lay = _two_class_layout(cols, plan)
+            bhk, bval, ohk, wrow = lay.bhk, lay.bval, lay.ohk, lay.wrow
+            name = lay.impl
+        else:
+            bhk, bval, ohk, _, wrow, tile, window = _stages(cols, plan)
+            name = _PROBE_NAMES[phj._merge_impl(plan, window)]
+        del cols
+        n_tiles = ohk.shape[0] // tile
+        sel = torch.linspace(0, n_tiles - 1, 256, device=dev).long()
+        sub = (ohk.view(n_tiles, tile)[sel].reshape(-1).contiguous(), bhk,
+               bval, wrow[sel].contiguous(), tile, window)
+        held(name, f"{label} (256 tiles)", _wrappers()[name](*sub),
+             mg.merge_probe_torch(*sub))
+        entries = ""
+        if plan.window_wide:
+            err, *_ = _k4_vs_plain(dev, lay, plan, f"fuzz {label}")
+            errs["merge_probe_gather_indexed"] = max(
+                errs.get("merge_probe_gather_indexed", 0), err)
+            entries = (f", K4 on 256 entries of its {lay.tidx.shape[0]}-"
+                       f"entry tile list")
+            del lay
+        geo.append(f"{label}: {name} at tile {tile}, window {window}"
+                   f"{entries}")
+        del bhk, bval, ohk, wrow, sub
+        torch.cuda.empty_cache()
+    _print(f"phase fuzz: kernels equal to their plain versions on the "
+           f"full-width draws' own plans (K1 on each probe side; "
+           f"{'; '.join(geo)}); max abs err {errs}")
+    return errs
 
 
 # --- the surface phase: the bench harness, the examples and the graft
@@ -2767,6 +3073,7 @@ DIST_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
                 "probe_tiles", "radix_partition"]
 # K4 runs only on a two-class plan, which no surface entry point makes
 SURFACE_KERNELS = DIST_KERNELS
+FUZZ_KERNELS = [name for name, _, _ in KERNELS]
 
 
 def main() -> None:
@@ -2928,12 +3235,25 @@ def _main_paths(dev) -> None:
     distributed = _launches()
     _print(f"launches, distributed path: {distributed}")
     inner_h = data_h[0]  # the matrix rows' build side
-    del uni_4m, zipf_4m, data_h, zipf_h
+    want_h = inputs.pop("want_h")
+    del uni_4m, zipf_4m, zipf_h
     torch.cuda.empty_cache()
     for name, err in _dist_kernel_checks(inputs.pop("meshes"),
                                          inputs).items():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
     _stamp("the distributed kernel checks")
+    torch.cuda.empty_cache()
+
+    _set_launches()
+    draws = phase_fuzz(dev, data_h, want_h)
+    fuzz = _launches()
+    _print(f"launches, fuzz path: {fuzz}")
+    _stamp("the fuzz phase")
+    torch.cuda.empty_cache()
+    for name, err in _fuzz_kernel_checks(dev, draws).items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    del data_h, draws
+    _stamp("the fuzz kernel checks")
     torch.cuda.empty_cache()
 
     _set_launches()
@@ -2951,7 +3271,8 @@ def _main_paths(dev) -> None:
                              ("cli", CLI_KERNELS, cli),
                              ("out-of-core", OUTOFCORE_KERNELS, outofcore),
                              ("distributed", DIST_KERNELS, distributed),
-                             ("surface", SURFACE_KERNELS, surface)):
+                             ("surface", SURFACE_KERNELS, surface),
+                             ("fuzz", FUZZ_KERNELS, fuzz)):
         for name in names:
             if got[name] == 0:
                 raise AssertionError(f"{name} was never launched on the "
@@ -2962,7 +3283,8 @@ def _main_paths(dev) -> None:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=(merge[name] + padded[name] + npj[name]
                               + cli[name] + outofcore[name]
-                              + distributed[name] + surface[name]),
+                              + distributed[name] + surface[name]
+                              + fuzz[name]),
                     library_ms=None, **stats[name])
                for name, src, rep in KERNELS]
     _print(json.dumps({"kernels": kernels}))

@@ -1056,3 +1056,44 @@ def test_distributed_nccl_world_of_one_on_card(cuda, tmp_path):
         dist.destroy_process_group()
     _same_runs(got, _dist_runs(thread_meshes(1, "cpu"), cols,
                                with_padded=False))
+
+
+def _fuzz_on_card(cuda, tmp_path, campaign, seed):
+    """A draw of tests/torch_fuzz_cases.py on the card equals the same
+    draw on the CPU, output for output and slot for slot (the final plans
+    included), and agrees with the port's oracle."""
+    import torch_fuzz_cases as fz
+
+    from hash_join_codes_knl_tpu_torch.engine.oracle import (
+        join_oracle,
+        multiset_digest,
+    )
+
+    if not fz.card_vs_cpu(campaign, seed, cuda, str(tmp_path), join_oracle,
+                          multiset_digest):
+        pytest.skip("degenerate after shard rounding")
+
+
+def _fuzz_draws(*campaigns):
+    from torch_fuzz_cases import all_draws
+
+    return [pytest.param(c, s, id=f"{c}-{s}") for c, s in all_draws()
+            if c in campaigns]
+
+
+@pytest.mark.parametrize("campaign,seed", _fuzz_draws(
+    "merge", "radix", "npj", "stream", "columns", "aggregate"))
+def test_fuzz_draw_on_card_matches_cpu(cuda, tmp_path, campaign, seed):
+    """The single-device campaigns of tests/test_fuzz.py on the card: the
+    merge join, the padded radix join with the tile probe, NPJ in both
+    orders, the stream's crash and resume, the four column-join modes
+    and the composite key, the aggregates."""
+    _fuzz_on_card(cuda, tmp_path, campaign, seed)
+
+
+@pytest.mark.parametrize("campaign,seed", _fuzz_draws("cpra", "grace"))
+def test_fuzz_distributed_draw_on_card_matches_cpu(cuda, tmp_path, campaign,
+                                                   seed):
+    """cpra_join and grace_join_dist on W gloo thread ranks sharing the
+    card against the same ranks on the CPU, rank by rank."""
+    _fuzz_on_card(cuda, tmp_path, campaign, seed)

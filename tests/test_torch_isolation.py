@@ -18,18 +18,23 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hash_join_codes_knl_tpu_torch")
 # modules of the JAX package the port, chip_smoke.py and the port's
-# root files, scripts and examples may import: none
+# root files, scripts, examples and card-side test helpers may import:
+# none
 ALLOWED = set()
 JAX_PKG = "hash_join_codes_knl_tpu"
 
 
 def _port_files():
     """The port's modules, its root files (chip_smoke.py, bench_torch.py,
-    __graft_entry_torch__.py), its scripts (scripts/torch_*.py) and its
-    examples (examples/torch_*.py), which run on the machine with the
-    card too."""
+    __graft_entry_torch__.py), its scripts (scripts/torch_*.py), its
+    examples (examples/torch_*.py) and the test helpers that chip_smoke.py
+    and the card tests import or launch (tests/torch_cases.py,
+    tests/torch_fuzz_cases.py, tests/torch_mp_grace_worker.py), which run
+    on the machine with the card too."""
     out = [os.path.join(REPO, f) for f in
-           ("chip_smoke.py", "bench_torch.py", "__graft_entry_torch__.py")]
+           ("chip_smoke.py", "bench_torch.py", "__graft_entry_torch__.py",
+            "tests/torch_cases.py", "tests/torch_fuzz_cases.py",
+            "tests/torch_mp_grace_worker.py")]
     for sub in ("scripts", "examples"):
         d = os.path.join(REPO, sub)
         out += [os.path.join(d, f) for f in os.listdir(d)

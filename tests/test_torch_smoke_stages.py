@@ -1,13 +1,16 @@
 """chip_smoke.py's helpers on the CPU: the padded stage breakdown runs
 _phj_join_padded's steps one by one, and its results must equal the
-engine's; the two-class plan's set-up leaves the launch counts as they
-were; K4's headline-list check holds K4 against K3's output; the trace's
+engine's; the two-class plans' set-up (the Zipf phase's and the fuzz
+phase's) leaves the launch counts as they were; the fuzz phase's plans
+and its kernel checks; K4's headline-list check holds K4 against K3's
+output; the trace's
 interval union, the sorted-window probes' bound and the tile probe's;
 the names of ptxas' report."""
 
 import dataclasses
 import importlib.util
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -19,8 +22,12 @@ from hash_join_codes_knl_tpu_torch.engine.config import (
     JoinPlan,
     plan_join,
 )
+from hash_join_codes_knl_tpu_torch.engine.tune import DEFAULT_CANDIDATES
 from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
-from hash_join_codes_knl_tpu_torch.utils.hashing import u32_to_device
+from hash_join_codes_knl_tpu_torch.utils.hashing import (
+    to_numpy_u32,
+    u32_to_device,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -111,6 +118,70 @@ def test_two_class_plan_puts_the_launch_counts_back(monkeypatch):
     res2, final = tphj.join(*cols, two)
     assert final == two
     assert int(res2.join_tuples) == int(res.join_tuples) == 31744
+
+
+def test_fuzz_plans_stay_under_the_window_cap():
+    """The fuzz phase's full-width plans: a tile of FUZZ_TILES, a chunk
+    count among the tuner's candidates or a multiple of 8 below them that
+    the window cap's c_win admits, the window auto."""
+    smoke = _chip_smoke()
+    ni, no = smoke.HEADLINE
+    rng = np.random.default_rng(5)
+    for _ in range(50):
+        plan = smoke._fuzz_plan(rng)
+        c = plan.probe_chunks
+        assert plan.tile in smoke.FUZZ_TILES and plan.window == 0
+        assert c in DEFAULT_CANDIDATES or (
+            c % 8 == 0 and 8 <= c < min(DEFAULT_CANDIDATES))
+        assert c <= 12_500 * no // (plan.tile * ni)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fuzz_two_class_plan_splits_the_tiles(seed):
+    """The fuzz phase's two-class plan narrows the window to a random
+    tile-span quantile: some tiles go to the wide pass, and join() runs
+    it as it is, exactly."""
+    smoke = _chip_smoke()
+    cols = _skewed_columns()
+    res, plan = tphj.join(*cols, plan_join(8192, 31744, tile=512),
+                          device="cpu")
+    two, label = smoke._fuzz_two_class(np.random.default_rng(seed), cols,
+                                       plan)
+    assert two.window < two.window_wide and two.wide_cap >= 128
+    assert " 0 wide tiles" not in label
+    res2, final = tphj.join(*cols, two)
+    assert final == two
+    assert int(res2.join_tuples) == int(res.join_tuples)
+
+
+def test_fuzz_kernel_checks_reach_every_probe_of_the_draws():
+    """The checks after the fuzz phase's counts are read, on a
+    single-class draw and a two-class one: K1, the probe each plan
+    dispatches on its spread tiles, and K4 on the two-class draw's own
+    tile list, each against its plain version (on the CPU both sides are
+    the plain version)."""
+    smoke = _chip_smoke()
+    cols = _skewed_columns()
+    rel = [SimpleNamespace(keys=to_numpy_u32(k), vals=to_numpy_u32(v))
+           for k, v in (cols[:2], cols[2:])]
+    _, plan = tphj.join(*cols, plan_join(8192, 31744, tile=512),
+                        device="cpu")
+    two, _ = smoke._fuzz_two_class(np.random.default_rng(0), cols, plan)
+    called = []
+    real = smoke._k4_vs_plain
+
+    def k4(dev, lay, p, label):
+        called.append(p)
+        return real(dev, lay, p, label)
+
+    smoke._k4_vs_plain = k4
+    errs = smoke._fuzz_kernel_checks(torch.device("cpu"),
+                                     [("one", rel, plan), ("two", rel, two)])
+    assert called == [two]
+    assert set(errs) >= {"flat_to_rows", "merge_probe_gather_indexed"}
+    assert set(errs) - {"flat_to_rows", "merge_probe_gather_indexed"} <= {
+        "merge_probe", "merge_probe_gather"}
+    assert not any(errs.values())
 
 
 @pytest.mark.parametrize("intervals,want", [
