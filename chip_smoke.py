@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (hash_join_codes_knl_tpu_torch) on
 one NVIDIA GPU: build the kernels, hold each against its plain PyTorch
 version (the indexed wide-window probe K4 also on a headline-sized tile
-list, against the wide-window probe K3 over all tiles), then drive the
+list, against the wide-window probe K3 over all tiles; the uint32 key
+unscramble on the headline probe side's full padded column), then drive the
 three paths of the port.  The merge path of
 join(): digests against the numpy oracle, the 16M x 256M headline join,
 its Zipf z=1.0 twin and the two-class window geometry on the same
@@ -37,7 +38,7 @@ the draws of tests/test_fuzz.py) on the card against the same draw on
 the CPU and the oracle, and four draws at 16M x 256M with a random tile
 and chunk count (the uniform relation, a two-class plan on it, a Zipf
 0.75 relation, a heavy-hitter probe side) against join_oracle's digest;
-all six kernels must launch there, and after its counts are read K1,
+all seven kernels must launch there, and after its counts are read K1,
 the probe each draw's plan dispatches and K4 (on the two-class draw's
 own tile list) are held against their plain versions on those draws.
 Last, the surface path,
@@ -445,7 +446,61 @@ def phase_kernels(dev, cols_1m, cols_h) -> dict:
     out["probe_tiles"] = _kernel_probe_tiles(dev, cols_h)
     torch.cuda.empty_cache()
     out["radix_partition"] = _kernel_radix_partition(cols_h)
+    torch.cuda.empty_cache()
+    out["mul_u32"] = _kernel_scramble(cols_h, plan_h, cap_h)
     return out
+
+
+def _kernel_scramble(cols_h, plan, cap: int) -> dict:
+    """The key unscramble where every PHJ join runs it: K1's biased
+    scrambled probe column of the headline plan (cap slots, pads
+    included) back to the keys, against the plain int64 version; also a
+    misaligned slice (the kernel's 4-byte path) and the scramble with the
+    bias after it (CPRA's radix pack, the check).  Beside the kernel: the
+    same product as torch's int32 multiply after an int32 xor, two calls
+    whose wrap-around on the card is not promised by C++."""
+    from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
+    from hash_join_codes_knl_tpu_torch.ops import scramble as sc
+    from hash_join_codes_knl_tpu_torch.utils.hashing import (
+        BIAS,
+        mod_inverse_u32,
+    )
+
+    hk = cl.flat_to_rows(cols_h[2], cols_h[3], cap, plan.probe_chunks,
+                         plan.factor)[0].view(-1)
+    inv = mod_inverse_u32(plan.factor)
+    args = (hk, inv, BIAS)
+    got, want = sc.mul_u32(*args), sc.mul_u32_torch(*args)
+    _check_equal(f"mul_u32 unscramble, {cap} slots", [got], [want])
+    err = _max_abs_err([got], [want])
+    n = HEADLINE[1]
+    if not torch.equal(got[:n], cols_h[2]) or bool(got[n:].any()):
+        raise AssertionError("mul_u32: the unscramble did not give back "
+                             "the probe keys and zero pads")
+    del want
+    for label, a in (("a misaligned slice", (hk[1:], inv, BIAS)),
+                     ("the biased scramble", (cols_h[2], plan.factor, 0,
+                                              BIAS))):
+        g, w = sc.mul_u32(*a), sc.mul_u32_torch(*a)
+        _check_equal(f"mul_u32, {label}", [g], [w])
+        err = max(err, _max_abs_err([g], [w]))
+    del g, w
+    ms = _median_ms(lambda: sc.mul_u32(*args), 20)
+    plain_ms = _median_ms(lambda: sc.mul_u32_torch(*args), 5)
+    inv32 = inv - 2**32 if inv >= 2**31 else inv
+    int32_ms = _median_ms(lambda: (hk ^ BIAS) * inv32, 20)
+    int32_equal = torch.equal((hk ^ BIAS) * inv32, got)
+    bound = _bound(8 * cap)  # each slot read once and written once
+    _print(f"phase kernels: mul_u32 equal to plain on the headline probe "
+           f"side's unscramble ({cap} slots, C={plan.probe_chunks}; the "
+           f"keys and zero pads come back), a misaligned slice and the "
+           f"biased scramble of {n} keys; kernel {ms:.4f} ms, plain "
+           f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+           f"({bound['bound_ms'] / ms:.0%}); torch int32 xor + multiply "
+           f"{int32_ms:.4f} ms (equal: {int32_equal})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                int32_xor_mul_ms=int32_ms, int32_xor_mul_equal=int32_equal,
+                **bound, shape=f"n={cap} unscramble")
 
 
 # K4's headline-sized list takes every 16th tile of the merge layout:
@@ -694,7 +749,8 @@ WRAPPERS = {"flat_to_rows": ("chunk_layout", "flat_to_rows"),
             "merge_probe_gather_indexed": ("merge_probe_gather",
                                            "merge_probe_gather_indexed"),
             "probe_tiles": ("probe", "probe_tiles"),
-            "radix_partition": ("radix_partition", "radix_partition")}
+            "radix_partition": ("radix_partition", "radix_partition"),
+            "mul_u32": ("scramble", "mul_u32")}
 
 
 def _wrappers() -> dict:
@@ -759,10 +815,11 @@ def phase_joins(dev, oracles):
     from hash_join_codes_knl_tpu_torch.engine.phj import join
 
     data_1m, want = oracles["small"]
-    _join_vs_oracle("uniform 1M x 8M", data_1m, dev, ["merge_probe"], want)
+    _join_vs_oracle("uniform 1M x 8M", data_1m, dev,
+                    ["merge_probe", "mul_u32"], want)
     data_4m, want = oracles.pop("uniform_4m")
     _join_vs_oracle("uniform 4M x 64M", data_4m, dev,
-                    ["flat_to_rows", "merge_probe_gather"], want)
+                    ["flat_to_rows", "merge_probe_gather", "mul_u32"], want)
     del data_4m
     # one oracle digest serves both plans on the Zipf columns
     zipf, want = oracles.pop("zipf_4m")
@@ -847,8 +904,8 @@ def phase_headline(dev, cols, gen_s) -> float:
     got, want = int(res.join_tuples), expected_join_tuples(*HEADLINE)
     if got != want:
         raise AssertionError(f"headline: join_tuples {got} != {want}")
-    if d["flat_to_rows"] == 0 or d["merge_probe_gather"] == 0:
-        raise AssertionError(f"headline: K1/K3 not launched: {d}")
+    if 0 in (d["flat_to_rows"], d["merge_probe_gather"], d["mul_u32"]):
+        raise AssertionError(f"headline: K1/K3/mul_u32 not launched: {d}")
     del res
     med, runs = _median_s(lambda: join(*cols, plan))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1183,6 +1240,7 @@ def _padded_stages(ik, iv, ok, ov, plan, ev=None) -> dict:
     equal); with `ev` (six CUDA events) each stage boundary is recorded.
     Returns the layout, the JoinResult's columns and the cardinality."""
     from hash_join_codes_knl_tpu_torch.engine import phj
+    from hash_join_codes_knl_tpu_torch.ops.scramble import unscramble
 
     rec = (lambda i: ev[i].record()) if ev else (lambda i: None)
     phj._check_padded_plan(plan)
@@ -1197,7 +1255,7 @@ def _padded_stages(ik, iv, ok, ov, plan, ev=None) -> dict:
     rec(2)
     mv, mc = phj._padded_probe(plan, pk, tk, tv, tpid, tile, counts)
     rec(3)
-    keys = phj._unscramble(pk, plan.factor)
+    keys = unscramble(pk, plan.factor)
     rec(4)
     join_tuples = int(mc.sum(dtype=torch.int64))
     rec(5)
@@ -2356,12 +2414,13 @@ def _two_level(m, cols, W, caps):
 
 def _dist_kernel_checks(meshes, inputs) -> dict:
     """Each kernel the distributed path launched, held against its plain
-    version on rank 0's inputs there: the radix pack's pass on rank 0's
-    probe block; K1, K3 and K2 on rank 0's exchanged columns at the
-    local plan (256 spread tiles for the probes); the tile probe on the
-    padded radix local plan's layout of those columns; K2 on NPJ's table
-    against rank 0's probe block.  Runs after the path's counts are
-    read.  Returns the largest difference per kernel."""
+    version on rank 0's inputs there: the radix pack's pass and its
+    scramble on rank 0's probe block; K1, K3 and K2 on rank 0's
+    exchanged columns at the local plan (256 spread tiles for the
+    probes); the tile probe on the padded radix local plan's layout of
+    those columns; K2 on NPJ's table against rank 0's probe block.  Runs
+    after the path's counts are read.  Returns the largest difference per
+    kernel."""
     from hash_join_codes_knl_tpu_torch.engine.config import plan_join
     from hash_join_codes_knl_tpu_torch.engine import phj
     from hash_join_codes_knl_tpu_torch.ops import chunk_layout as cl
@@ -2369,11 +2428,16 @@ def _dist_kernel_checks(meshes, inputs) -> dict:
     from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
     from hash_join_codes_knl_tpu_torch.ops import probe as pt
     from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+    from hash_join_codes_knl_tpu_torch.ops import scramble as sc
     from hash_join_codes_knl_tpu_torch.parallel import cpra
     from hash_join_codes_knl_tpu_torch.parallel.distributed import (
         shard_null_padded,
     )
-    from hash_join_codes_knl_tpu_torch.utils.hashing import bias, hashed_key
+    from hash_join_codes_knl_tpu_torch.utils.hashing import (
+        BIAS,
+        bias,
+        hashed_key,
+    )
 
     W = len(meshes)
     u4 = inputs["u4"]
@@ -2394,6 +2458,10 @@ def _dist_kernel_checks(meshes, inputs) -> dict:
     got, want = rp.radix_partition(*args), rp.radix_partition_torch(*args)
     _check_equal("radix_partition, the radix pack of rank 0", got, want)
     errs["radix_partition"] = _max_abs_err(got, want)
+    sargs = (ok0, plan.factor, 0, BIAS)
+    got, want = [sc.mul_u32(*sargs)], [sc.mul_u32_torch(*sargs)]
+    _check_equal("mul_u32, the radix pack's scramble of rank 0", got, want)
+    errs["mul_u32"] = _max_abs_err(got, want)
     local = dataclasses.replace(plan, skip_bits=plan.skip_bits + 2)
     tile, window, rows, cap = phj._merge_params(local, xch[0].shape[0],
                                                 xch[2].shape[0])
@@ -3061,16 +3129,24 @@ KERNELS = [
     ("radix_partition",
      "hash_join_codes_knl_tpu_torch/csrc/radix_partition.cu",
      "hash_join_codes_knl_tpu/ops/radix_partition_pallas.py:156"),
+    # no pallas_call: the JAX merge path's unscramble, a uint32 multiply
+    # XLA fused
+    ("mul_u32", "hash_join_codes_knl_tpu_torch/csrc/scramble.cu",
+     "hash_join_codes_knl_tpu/engine/phj.py:539"),
 ]
-# the kernels each path must launch
+# the kernels each path must launch (NPJ hashes with range_hash, which
+# keeps the int64 multiply: no unscramble there)
 MERGE_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
-                 "merge_probe_gather_indexed"]
-PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition"]
+                 "merge_probe_gather_indexed", "mul_u32"]
+PADDED_KERNELS = ["flat_to_rows", "probe_tiles", "radix_partition",
+                  "mul_u32"]
 NPJ_KERNELS = ["merge_probe"]
-CLI_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather"]
-OUTOFCORE_KERNELS = ["flat_to_rows", "merge_probe_gather", "radix_partition"]
+CLI_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
+               "mul_u32"]
+OUTOFCORE_KERNELS = ["flat_to_rows", "merge_probe_gather", "radix_partition",
+                     "mul_u32"]
 DIST_KERNELS = ["flat_to_rows", "merge_probe", "merge_probe_gather",
-                "probe_tiles", "radix_partition"]
+                "probe_tiles", "radix_partition", "mul_u32"]
 # K4 runs only on a two-class plan, which no surface entry point makes
 SURFACE_KERNELS = DIST_KERNELS
 FUZZ_KERNELS = [name for name, _, _ in KERNELS]
@@ -3279,7 +3355,8 @@ def _main_paths(dev) -> None:
                                      f"{path} path")
 
     # no single PyTorch call computes any of these kernels' functions
-    # (PERF.md says why, kernel by kernel), so library_ms is null
+    # (PERF.md says why, kernel by kernel; torch has no uint32 multiply),
+    # so library_ms is null
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=(merge[name] + padded[name] + npj[name]
                               + cli[name] + outofcore[name]

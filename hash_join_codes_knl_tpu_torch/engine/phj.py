@@ -65,13 +65,11 @@ from ..ops.partition import (
 )
 from ..ops.probe import probe_tiles, probe_tiles_torch
 from ..ops.radix_partition import multipass_partition
+from ..ops.scramble import unscramble
 from ..utils.hashing import (
     BIAS,
-    mod_inverse_u32,
-    mul_u32,
     to_numpy_u32,
     u32_to_device,
-    unbias,
 )
 from .config import JoinPlan, plan_join
 
@@ -356,7 +354,7 @@ def _merge_probe(bhk, bval, ohk, ov, wrow, overflow, plan: JoinPlan,
     if plan.unique_build and impl == "merge_gather":
         viol = viol + ((bhk[1:] == bhk[:-1]) & (bhk[1:] != BIAS)).sum()
     stats = torch.cat([overflow, viol[None]])
-    return JoinResult(_unscramble(ohk, plan.factor), ov, mv, mc, stats)
+    return JoinResult(unscramble(ohk, plan.factor), ov, mv, mc, stats)
 
 
 def _staged_fns(plan: JoinPlan, tile: int, window: int, rows_total: int):
@@ -496,11 +494,6 @@ def _padded_layout(keys, vals, plan: JoinPlan):
     return pk, pv, tile_pids(offsets, pk.shape[0] // tile, tile), tile, ovf
 
 
-def _unscramble(pk, factor: int):
-    """Original keys of a biased scrambled column (pads become 0)."""
-    return mul_u32(unbias(pk), mod_inverse_u32(factor))
-
-
 def _phj_join_padded(inner_keys, inner_vals, outer_keys, outer_vals,
                      plan: JoinPlan) -> JoinResult:
     """PHJ, padded mode: the JAX package's ``_phj_join_padded`` and
@@ -516,7 +509,7 @@ def _phj_join_padded(inner_keys, inner_vals, outer_keys, outer_vals,
         counts = torch.full_like(bcounts, tk.shape[1])
         bcounts = torch.cat([bcounts, (bovf + oovf).view(1)])
     mv, mc = _padded_probe(plan, pk, tk, tv, tpid, tile, counts)
-    return JoinResult(_unscramble(pk, plan.factor), pv, mv, mc, bcounts)
+    return JoinResult(unscramble(pk, plan.factor), pv, mv, mc, bcounts)
 
 
 def phj_join(inner_keys, inner_vals, outer_keys, outer_vals,

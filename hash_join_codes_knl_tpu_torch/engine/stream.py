@@ -42,6 +42,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops.scramble import unscramble
 from ..utils.hashing import to_numpy_u32, u32_to_device
 from ..utils.host import u64sum
 from .config import JoinPlan, plan_join
@@ -51,7 +52,6 @@ from .phj import (
     _merge_sort_probe,
     _run_device,
     _staged_fns,
-    _unscramble,
     downgrade_plan_opts,
     replan_window_cap,
     window_from_span,
@@ -305,7 +305,7 @@ def replay_probe_columns(chunk_keys, chunk_vals, plan: JoinPlan, cap: int,
     k = u32_to_device(np.asarray(chunk_keys, dtype=np.uint32), device)
     v = u32_to_device(np.asarray(chunk_vals, dtype=np.uint32), device)
     hk, pv = _merge_sort_probe(k, v, cap, plan.probe_chunks, plan.factor)
-    return to_numpy_u32(_unscramble(hk, plan.factor)), to_numpy_u32(pv)
+    return to_numpy_u32(unscramble(hk, plan.factor)), to_numpy_u32(pv)
 
 
 def stream_join(

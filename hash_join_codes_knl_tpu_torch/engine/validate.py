@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.hashing import bias, mul_u32, u32_to_device
+from ..ops import scramble
+from ..utils.hashing import BIAS, u32_to_device
 
 _U32_MASK = 0xFFFFFFFF
 
@@ -86,7 +87,8 @@ def validate_join_result(res, outer_keys, plan) -> dict:
             monotonicity = "skipped: irregular geometry " \
                 f"({len(pk)} slots, {chunks} chunks)"
         else:
-            h2 = bias(mul_u32(pk, plan.factor)).reshape(chunks, -1)
+            h2 = scramble.mul_u32(pk, plan.factor,
+                                  xor_out=BIAS).reshape(chunks, -1)
             if bool((h2[:, 1:] < h2[:, :-1]).any()):
                 raise ValueError(
                     "monotonicity: probe layout not hash-ordered within "

@@ -50,6 +50,7 @@ _SIGNATURES = {
                             _VP],
     "hjk_radix_scatter": [_VP, _VP, _I64, _I64, _I64, _I64, _INT, _INT,
                           _VP, _VP, _VP, _INT, _VP],
+    "hjk_mul_u32": [_VP, _I64, _VP, _U32, _U32, _U32, _VP],
 }
 
 _lock = threading.Lock()

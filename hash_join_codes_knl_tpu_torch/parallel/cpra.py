@@ -44,20 +44,19 @@ from ..engine.phj import (
     phj_join,
     replan_from_span,
 )
+from ..ops import scramble
 from ..ops.partition import build_dense_table
 from ..ops.radix_partition import radix_partition
 from ..utils.hashing import (
+    BIAS,
     bias,
     hash_ratio,
-    hashed_key,
     mod_inverse_u32,
-    mul_u32,
     unbias,
 )
 from . import skew as skew_ops
 from .distributed import Mesh, require_live_mesh, shard_null_padded
 
-_U32_MASK = 0xFFFFFFFF
 _RESULT_FIELDS = ("probe_keys", "probe_vals", "match_vals", "match_cnts",
                   "build_counts")
 
@@ -82,8 +81,8 @@ def pack_by_owner_radix(keys, vals, factor: int, c_bits: int, cap: int = 0):
     (pads 0); the caller multiplies by the modular inverse after the
     exchange.  Returns (bucket hk (C * capr,), values, counts (C,),
     overflow)."""
-    bk, bv, counts, ovf = radix_partition(bias(hashed_key(keys, factor)),
-                                          vals, c_bits, cap=cap)
+    bk, bv, counts, ovf = radix_partition(
+        scramble.mul_u32(keys, factor, xor_out=BIAS), vals, c_bits, cap=cap)
     return unbias(bk), bv, counts, ovf
 
 
@@ -140,10 +139,11 @@ def _owner_bits(n_chips: int) -> int:
 
 
 def _top_bits(keys, factor: int, bits: int, shift: int = 0):
-    """Bits [32-shift, 32-shift-bits) of the unsigned scrambled key, as
-    int64: a logical shift, which an arithmetic shift of int32 is not."""
-    hk = hashed_key(keys, factor).to(torch.int64) & _U32_MASK
-    return ((hk << shift) & _U32_MASK) >> (32 - bits)
+    """The `bits` bits of the unsigned scrambled key below its top
+    `shift` bits, as int64.  An arithmetic shift of int32 copies the sign
+    bit into the top; the mask keeps only the key's own bits."""
+    hk = scramble.mul_u32(keys, factor)
+    return ((hk >> (32 - shift - bits)) & ((1 << bits) - 1)).to(torch.int64)
 
 
 def _make_owner_of(plan: JoinPlan, n_chips: int, c_bits: int,
@@ -269,9 +269,9 @@ def make_cpra_step(
                             | (icnt > inner_cap).any()
                             | (ocnt > outer_cap).any())
             inv = mod_inverse_u32(plan.factor)
-            rik = mul_u32(mesh.all_to_all(bik), inv)
+            rik = scramble.mul_u32(mesh.all_to_all(bik), inv)
             riv = mesh.all_to_all(biv)
-            rok = mul_u32(mesh.all_to_all(bok), inv)
+            rok = scramble.mul_u32(mesh.all_to_all(bok), inv)
             rov = mesh.all_to_all(bov)
         else:
             rik, riv, iovf = _exchange_sort(mesh, ik, iv, owner_of(ik),

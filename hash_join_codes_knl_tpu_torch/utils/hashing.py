@@ -12,6 +12,12 @@ it everywhere:
   null key 0 becomes ``INT32_MIN`` and null pads still sort first;
 - arithmetic that needs more than 32 bits happens in ``int64`` and is
   masked back (``mul_u32``), never in overflowing ``int32``.
+
+That int64 multiply is a dozen elementwise passes.  The engine's hot
+path (the unscramble, CPRA's owner bits and buckets, the check) takes
+``ops/scramble.py`` instead, whose CUDA kernel multiplies in uint32 in
+one pass; ``mul_u32`` here stays its plain version, and the plain
+versions of the other kernels and ``range_hash`` keep calling it.
 """
 
 from __future__ import annotations

@@ -28,8 +28,15 @@ from hash_join_codes_knl_tpu_torch.ops import merge_probe_gather as mg
 from hash_join_codes_knl_tpu_torch.ops import partition as pa
 from hash_join_codes_knl_tpu_torch.ops import probe as pt
 from hash_join_codes_knl_tpu_torch.ops import radix_partition as rp
+from hash_join_codes_knl_tpu_torch.ops import scramble as sc
 from hash_join_codes_knl_tpu_torch.relgen.generate import generate
-from hash_join_codes_knl_tpu_torch.utils.hashing import bias, u32_to_device
+from hash_join_codes_knl_tpu_torch.utils.hashing import (
+    BIAS,
+    bias,
+    mod_inverse_u32,
+    to_numpy_u32,
+    u32_to_device,
+)
 from torch_cases import (
     case_boundary_and_pads,
     case_long_duplicate_runs,
@@ -69,6 +76,61 @@ def test_flat_to_rows_kernel_matches_plain(cuda, n, cap, C):
     assert cl.flat_to_rows.launches == before + 1
     assert _equal(got, cl.flat_to_rows_torch(keys, vals, cap, C,
                                              DEFAULT_FACTOR))
+
+
+# the unsigned keys 0, 0xFFFFFFFF and 0x80000000 (INT32_MIN's bits, the
+# biased null pad)
+SCRAMBLE_EDGES = np.array([0, 0xFFFFFFFF, 0x80000000, 1, 0x7FFFFFFF],
+                          np.uint32)
+
+
+def _scramble_input(n, dev, offset=0):
+    rng = np.random.default_rng(n + offset)
+    a = rng.integers(0, 2**32, n + offset, dtype=np.uint32)
+    a[offset:offset + 5] = SCRAMBLE_EDGES[:n]
+    return u32_to_device(a, dev)[offset:]
+
+
+@pytest.mark.parametrize("xor_in,xor_out", [(0, 0), (BIAS, 0), (0, BIAS),
+                                            (BIAS, BIAS)])
+@pytest.mark.parametrize("factor", [0x9E3779B1, mod_inverse_u32(0x9E3779B1),
+                                    DEFAULT_FACTOR])
+@pytest.mark.parametrize("n", [0, 1, 1023, 4096 + 3, 2**24])
+def test_mul_u32_kernel_matches_plain(cuda, n, factor, xor_in, xor_out):
+    x = _scramble_input(n, cuda)
+    before = sc.mul_u32.launches
+    got = sc.mul_u32(x, factor, xor_in, xor_out)
+    assert sc.mul_u32.launches == before + (n > 0)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert _equal([got], [sc.mul_u32_torch(x, factor, xor_in, xor_out)])
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 1023, 4096 + 3, 2**24])
+def test_mul_u32_kernel_misaligned_slice(cuda, n, offset):
+    """A slice t[offset:] of a 16-byte-aligned column: offsets 1-3 take
+    the scalar path, 4 the vector path again with a scalar tail."""
+    x = _scramble_input(n, cuda, offset)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset < 4)
+    for xi, xo in ((0, 0), (BIAS, BIAS)):
+        got = sc.mul_u32(x, 0x9E3779B1, xi, xo)
+        assert _equal([got], [sc.mul_u32_torch(x, 0x9E3779B1, xi, xo)])
+
+
+def test_unscramble_of_flat_to_rows_gives_back_the_keys(cuda):
+    """K1's biased scrambled column, unscrambled by the kernel: the
+    original keys, and 0 in every pad slot."""
+    n, cap = 100_003, 128 * 1024
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
+    keys[:5] = SCRAMBLE_EDGES
+    k = u32_to_device(keys, cuda)
+    hk, _ = cl.flat_to_rows(k, k, cap, 8, DEFAULT_FACTOR)
+    before = sc.mul_u32.launches
+    got = to_numpy_u32(sc.unscramble(hk.reshape(-1), DEFAULT_FACTOR))
+    assert sc.mul_u32.launches == before + 1
+    np.testing.assert_array_equal(got[:n], keys)
+    assert not got[n:].any()
 
 
 @pytest.mark.parametrize("make", CASES, ids=lambda f: f.__name__)
